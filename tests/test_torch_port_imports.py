@@ -1,0 +1,118 @@
+"""Import hygiene of the port and its device policy.
+
+Every module of ``protoasnet_tpu_torch`` (and ``chip_smoke.py``) imports
+in a fresh interpreter without pulling in JAX or the JAX package; the
+entry points run on CUDA unless the caller asks for the CPU, so without a
+card they raise instead of carrying on on the CPU.
+"""
+
+import json
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+REPO = Path(__file__).resolve().parents[1]
+CFG = {"name": "Video_XProtoNet", "base_architecture": "resnet2p1d_18",
+       "backbone_last_layer_num": -3, "prototype_shape": (8, 64, 1, 1, 1),
+       "num_classes": 4, "img_size": 32}
+
+_IMPORT_ALL = """
+import importlib, json, pkgutil, sys
+import protoasnet_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "jaxlib", "flax"))
+             or m == "protoasnet_tpu" or m.startswith("protoasnet_tpu."))
+print(json.dumps({"modules": names, "bad": bad}))
+"""
+
+
+def _run(args, cwd, **kw):
+    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
+    return subprocess.run([sys.executable, *args], cwd=str(cwd), env=env,
+                          capture_output=True, text=True, timeout=300, **kw)
+
+
+def test_port_imports_no_jax():
+    proc = _run(["-c", _IMPORT_ALL], REPO)
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert "protoasnet_tpu_torch.ops.roi_cosine_cuda" in out["modules"]
+    assert "protoasnet_tpu_torch.server" in out["modules"]
+    assert out["bad"] == []
+
+
+def test_port_sources_name_no_jax():
+    for path in [REPO / "chip_smoke.py",
+                 *sorted((REPO / "protoasnet_tpu_torch").rglob("*.py"))]:
+        for line in path.read_text().splitlines():
+            code = line.split("#")[0]
+            if code.lstrip().startswith(("import ", "from ")):
+                assert "jax" not in code and "flax" not in code, (path, line)
+                assert "protoasnet_tpu." not in code.replace(
+                    "protoasnet_tpu_torch", ""), (path, line)
+
+
+def _no_card():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the no-card refusal cannot be shown")
+
+
+def test_entry_points_refuse_without_cuda(tmp_path):
+    _no_card()
+    from protoasnet_tpu_torch.models.builder import build_model, example_input
+    from protoasnet_tpu_torch.serve import (load_serving_bundle_with_spec,
+                                            save_serving_bundle)
+    from protoasnet_tpu_torch.utils.device import resolve_device
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build_model(CFG)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        example_input(CFG, {"img_size": 32, "frames": 8})
+    model = build_model(CFG, device="cpu")
+    path = str(tmp_path / "b.zip")
+    save_serving_bundle(path, model, CFG, (8, 32, 32, 3))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        load_serving_bundle_with_spec(path)
+    with pytest.raises(ValueError, match="unsupported device"):
+        resolve_device("meta")
+    assert resolve_device("cpu").type == "cpu"
+
+
+def test_server_cli_refuses_without_cuda(tmp_path):
+    _no_card()
+    from protoasnet_tpu_torch.models.builder import build_model
+    from protoasnet_tpu_torch.serve import save_serving_bundle
+
+    path = str(tmp_path / "b.zip")
+    save_serving_bundle(path, build_model(CFG, device="cpu"), CFG,
+                        (8, 32, 32, 3))
+    proc = _run(["-m", "protoasnet_tpu_torch.server", "--bundle", path,
+                 "--port", "0", "--no_warmup"], REPO)
+    assert proc.returncode != 0
+    assert "CUDA is not available" in proc.stderr
+
+
+@pytest.mark.parametrize("where", ["repo", "alone"])
+def test_chip_smoke_fails_without_the_card_or_the_repo(tmp_path, where):
+    """No card: exit non-zero and print no result. A directory holding
+    chip_smoke.py and nothing else of the repo: the same."""
+    if where == "repo":
+        _no_card()
+        proc = _run([str(REPO / "chip_smoke.py")], REPO)
+    else:
+        shutil.copy(REPO / "chip_smoke.py", tmp_path / "chip_smoke.py")
+        env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+        proc = subprocess.run([sys.executable, "chip_smoke.py"],
+                              cwd=str(tmp_path), env=env, capture_output=True,
+                              text=True, timeout=300)
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout
