@@ -1,24 +1,31 @@
-"""Chip smoke of the PyTorch/H100 port: the serving path of the flagship
-Video ProtoASNet on one NVIDIA GPU, through the hand-written CUDA head.
+"""Chip smoke of the PyTorch/H100 port: the serving paths of the video
+flagship (Video ProtoASNet), the ProtoPNet baseline and the image
+ProtoASNet on one NVIDIA GPU, through the hand-written CUDA kernels.
 
     python3 chip_smoke.py
 
 Phases (each prints one or more informational lines; any failed check
 raises and the script exits non-zero without printing a result):
 
-1. build the CUDA kernel(s) from ``protoasnet_tpu_torch/csrc``;
-2. hold ``roi_cosine_cuda`` against its plain PyTorch version at the
-   flagship head shape (N=128, S=8*14*14, P=40, D=256), fp32 and bf16
-   inputs, and time kernel, plain version and their bound;
-3. build the flagship model (``ours_protoasnet_video.yml``) at full width
-   with seeded random weights; at fp32 hold the kernel-head outputs
-   against the plain-head outputs on the card, and the card's logits
-   against the same model on the CPU;
-4. the main path: write a port bundle, ``server.serve_forever`` on port 0
-   in a thread, POST clips to /v1/predict, check the logits against a
-   direct forward, read /healthz and /v1/stats, stop. The kernels' launch
-   counts are read around this phase only;
-5. clips/s of the bf16 forward at batch 32 and 128.
+1. build the CUDA kernels from ``protoasnet_tpu_torch/csrc`` (one ``nvcc``
+   per source, all started together) and print ptxas' registers/spills;
+2. hold each kernel against its plain PyTorch version on the card and time
+   kernel, plain version, their bound and a library reference:
+   ``roi_cosine_cuda`` at the video head shape (N=128, S=8*14*14, P=40,
+   D=256) and at the image head shape (N=128, S=7*7, P=40, D=512), fp32
+   and bf16 inputs; ``l2_min_cuda`` at ProtoPNet's head shape (N=128 and
+   8, S=7*7, P=30, D=512) against a float64 plain version;
+3. build each model at full width with seeded random weights; at fp32
+   with TF32 off hold the kernel-head outputs against the plain-head
+   outputs on the card, and the card's logits against the same model on
+   the CPU (for ProtoPNet also the ``push_forward`` distance map);
+4. the main paths, one after the other: write a port bundle,
+   ``server.serve_forever`` on port 0 in a thread, POST samples to
+   /v1/predict, check the logits against a direct forward and against the
+   plain head, read /healthz and /v1/stats, stop. The kernels' launch
+   counts are set to 0 just before each path and read just after it;
+5. samples/s of each model's forward at batch 32 and 128 and of the
+   serving function at 128.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or of the JAX
@@ -35,16 +42,27 @@ import tempfile
 import threading
 import time
 import urllib.request
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
 import torch
 
 REPO = Path(__file__).resolve().parent
-CONFIG = REPO / "protoasnet_tpu" / "configs" / "ours_protoasnet_video.yml"
-CLIP = (32, 112, 112, 3)
-# the head's shape in the server's default (and largest) bucket, 128 clips
-HEAD = dict(n=128, s=8 * 14 * 14, p=40, d=256)
+CONFIGS = REPO / "protoasnet_tpu" / "configs"
+SOURCES = ("roi_cosine.cu", "l2_min.cu")
+# the three served models: config, per-sample input, what a sample is
+VIDEO = dict(label="video flagship", config="ours_protoasnet_video.yml",
+             sample=(32, 112, 112, 3), unit="clips")
+PPNET = dict(label="ProtoPNet", config="baseline_protopnet.yml",
+             sample=(224, 224, 3), unit="images")
+IMAGE = dict(label="image ProtoASNet", config="ours_protoasnet_image.yml",
+             sample=(224, 224, 3), unit="images")
+CLIP = VIDEO["sample"]
+# the heads' shapes in the server's default (and largest) bucket, 128
+HEAD = dict(n=128, s=8 * 14 * 14, p=40, d=256)  # video ROI-cosine head
+IMAGE_HEAD = dict(n=128, s=7 * 7, p=40, d=512)  # image ROI-cosine head
+L2_HEAD = dict(n=128, s=7 * 7, p=30, d=512)  # ProtoPNet's L2 + min head
 # published H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s, and
 # FLOP/s for the head's input dtype: bf16 inputs on the tensor cores (a
 # bf16 product with fp32 accumulation is exact), fp32 inputs outside them
@@ -73,6 +91,27 @@ def time_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def kernel_device_ms(fn, name: str, iters: int = 50):
+    """Mean device time in ms of the CUDA kernels whose name contains
+    ``name`` per call of ``fn``, from ``torch.profiler``; None if the
+    profiler recorded no device time for them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = 0.0
+    for e in prof.key_averages():
+        if name in e.key and e.device_type == torch.autograd.DeviceType.CUDA:
+            us += getattr(e, "self_device_time_total",
+                          getattr(e, "self_cuda_time_total", 0.0))
+    return us / 1e3 / iters if us > 0 else None
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -81,26 +120,43 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def _bound(nbytes: float, flops: float, dtype):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOP_PER_S[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def head_bound_ms(n, s, p, d, dtype):
-    """Least time for the head on an H100: every input read once
+    """Least time for the ROI-cosine head on an H100: every input read once
     (occ, feat in ``dtype``; protos fp32) and every output written once
     (roi, sim fp32) at HBM rate, vs 2*N*S*P*D pooling FLOPs plus the
     cosine epilogue's ~4*N*P*D at the card's peak for ``dtype``."""
     in_bytes = torch.empty((), dtype=dtype).element_size()
     nbytes = n * s * (p + d) * in_bytes + p * d * 4 + p * 4 \
         + n * p * d * 4 + n * p * 4
-    flops = 2 * n * s * p * d + 4 * n * p * d
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOP_PER_S[dtype] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return _bound(nbytes, 2 * n * s * p * d + 4 * n * p * d, dtype)
+
+
+def l2_bound_ms(n, s, p, d, in_bytes=4):
+    """Least time for the L2 + min head on an H100: x (N,S,D), w (P,D) and
+    p2 (P,) read once, dist (N,S,P) and min_d (N,P) fp32 written once, vs
+    2*N*S*P*D product FLOPs + 2*N*S*D for |x|^2 + 5*N*S*P for the relu
+    epilogue and the min, at the fp32 rate (the kernel may not use TF32)."""
+    nbytes = n * s * d * in_bytes + p * d * 4 + p * 4 + n * s * p * 4 \
+        + n * p * 4
+    flops = 2 * n * s * p * d + 2 * n * s * d + 5 * n * s * p
+    return _bound(nbytes, flops, torch.float32)
 
 
 def phase_build():
     from protoasnet_tpu_torch.ops import cuda_build
 
     t0 = time.monotonic()
-    cuda_build.load_library("roi_cosine.cu")
-    log(f"[1 build] roi_cosine.cu -> sm_90a in "
+    with ThreadPoolExecutor(len(SOURCES)) as ex:  # one nvcc per source
+        list(ex.map(cuda_build.build_library, SOURCES))
+    for src in SOURCES:
+        cuda_build.load_library(src)
+    log(f"[1 build] {', '.join(SOURCES)} -> sm_90a in "
         f"{time.monotonic() - t0:.1f}s")
     for src, text in cuda_build.build_logs.items():
         for line in text.splitlines():
@@ -122,23 +178,23 @@ def _head_errors(occ, feat, protos):
     err_sim = (sim.double() - ref_sim).abs().max().item()
     rel_roi = err_roi / ref_roi.abs().max().item()
     rel_sim = err_sim / ref_sim.abs().max().item()
-    # fp32 sums of 1568 terms in another order than float64: ~1e-6
+    # fp32 sums of up to 1568 terms in another order than float64: ~1e-6
     # relative; 1e-5 leaves a margin and still catches a wrong index
     if not (rel_roi < 1e-5 and err_sim < 1e-5):
-        raise AssertionError(f"roi_cosine_cuda {occ.dtype} N={len(occ)}: "
-                             f"roi rel err {rel_roi:.3e}, sim abs err "
-                             f"{err_sim:.3e}")
+        raise AssertionError(f"roi_cosine_cuda {occ.dtype} N={len(occ)} "
+                             f"D={feat.shape[-1]}: roi rel err "
+                             f"{rel_roi:.3e}, sim abs err {err_sim:.3e}")
     return err_roi, rel_roi, err_sim, rel_sim
 
 
-def phase_head(dev):
-    """Kernel vs plain version at the flagship head shape, at the server's
-    largest default bucket (128) and the smoke's served bucket (8); returns
-    the bf16 (main-path dtype) record at 128."""
+def phase_head(dev, shape, label):
+    """ROI-cosine kernel vs plain version at ``shape``, at the server's
+    largest default bucket (128) and the smoke's served bucket (8);
+    returns the bf16 (main-path dtype) record at 128."""
     from protoasnet_tpu_torch.ops.roi_cosine import roi_cosine_torch
     from protoasnet_tpu_torch.ops.roi_cosine_cuda import roi_cosine_cuda
 
-    n, s, p, d = HEAD["n"], HEAD["s"], HEAD["p"], HEAD["d"]
+    n, s, p, d = shape["n"], shape["s"], shape["p"], shape["d"]
     g = torch.Generator(device=dev).manual_seed(1)
     occ32 = torch.rand((n, s, p), device=dev, generator=g) * 0.05
     feat32 = torch.randn((n, s, d), device=dev, generator=g)
@@ -158,11 +214,11 @@ def phase_head(dev):
         occ2, feat2 = occ.float(), feat.float()
         bmm_ms = time_ms(lambda: torch.bmm(occ2.transpose(1, 2), feat2), 20)
         bound_ms, bound_by = head_bound_ms(n, s, p, d, dtype)
-        log(f"[2 head] {str(dtype)[6:]} N={n} S={s} P={p} D={d}: roi max abs "
-            f"err {err_roi:.3e} (rel {rel_roi:.3e}), sim max abs err "
-            f"{err_sim:.3e} (rel {rel_sim:.3e}); kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, bmm of roi alone {bmm_ms:.4f} ms, bound "
-            f"{bound_ms:.4f} ms ({bound_by}), kernel runs "
+        log(f"[2 head {label}] {str(dtype)[6:]} N={n} S={s} P={p} D={d}: "
+            f"roi max abs err {err_roi:.3e} (rel {rel_roi:.3e}), sim max abs "
+            f"err {err_sim:.3e} (rel {rel_sim:.3e}); kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, bmm of roi alone {bmm_ms:.4f} ms, "
+            f"bound {bound_ms:.4f} ms ({bound_by}), kernel runs "
             f"{times['kernel']} plain runs {times['plain']}; at N=8 roi "
             f"max abs err {e8[0]:.3e}, sim {e8[2]:.3e}")
         if dtype == torch.bfloat16:
@@ -172,10 +228,90 @@ def phase_head(dev):
     return record
 
 
-def load_flagship_config():
+def _l2_errors(x, w):
+    """l2_min_cuda vs a float64 plain version: (max abs err, scale);
+    raises past the tolerance or if min_d is not dist's minimum."""
+    from protoasnet_tpu_torch.ops.l2_min import l2_min_torch
+    from protoasnet_tpu_torch.ops.l2_min_cuda import l2_min_cuda
+
+    dist, min_d = l2_min_cuda(x, w)
+    torch.cuda.synchronize()
+    ref_dist, ref_min = l2_min_torch(x.double(), w.double())
+    err = max((dist.double() - ref_dist).abs().max().item(),
+              (min_d.double() - ref_min).abs().max().item())
+    # the cancellation error follows |x|^2 + |w|^2, not dist: fp32 sums of
+    # D=512 products are off by ~sqrt(D)*2^-24 of that; 1e-5 of it leaves
+    # a margin and still catches a wrong index (an error of order dist)
+    scale = ((x.double() ** 2).sum(-1).max()
+             + (w.double() ** 2).sum(-1).max()).item()
+    if err > 1e-5 * scale:
+        raise AssertionError(f"l2_min_cuda N={len(x)}: max abs err "
+                             f"{err:.3e} > 1e-5 * {scale:.1f}")
+    if not torch.equal(min_d, dist.amin(1)):
+        raise AssertionError("l2_min_cuda: min_d is not dist.amin(1)")
+    return err, scale
+
+
+def phase_l2(dev):
+    """L2 + min kernel vs its float64 plain version at ProtoPNet's head
+    shape (sigmoid-range features as the "regular" add-on gives, U(0,1)
+    prototypes as the init draws), at batch 128 and 8; returns its record
+    at 128."""
+    from protoasnet_tpu_torch.ops.l2_min import l2_min_torch
+    from protoasnet_tpu_torch.ops.l2_min_cuda import l2_min_cuda
+
+    n, s, p, d = L2_HEAD["n"], L2_HEAD["s"], L2_HEAD["p"], L2_HEAD["d"]
+    g = torch.Generator(device=dev).manual_seed(2)
+    x = torch.sigmoid(torch.randn((n, s, d), device=dev, generator=g))
+    w = torch.rand((p, 1, 1, d), device=dev, generator=g)
+    err8, _ = _l2_errors(x[:8], w)
+    err, scale = _l2_errors(x, w)
+    times = {"plain": [], "kernel": []}
+    for which in ("plain", "kernel", "kernel", "plain"):
+        fn = l2_min_torch if which == "plain" else l2_min_cuda
+        times[which].append(time_ms(lambda: fn(x, w), 200))
+    ms = min(times["kernel"])
+    plain_ms = min(times["plain"])
+    x2d, w2d = x.reshape(n * s, d), w.reshape(p, d)
+    cdist_ms = time_ms(lambda: torch.cdist(
+        x2d, w2d, compute_mode="use_mm_for_euclid_dist"), 200)
+    dev_ms = kernel_device_ms(lambda: l2_min_cuda(x, w), "l2_min_kernel")
+    bound_ms, bound_by = l2_bound_ms(n, s, p, d)
+    log(f"[2 l2_min] fp32 N={n} S={s} P={p} D={d}: max abs err {err:.3e} "
+        f"(scale |x|^2+|w|^2 = {scale:.1f}; at N=8 {err8:.3e}), min_d == "
+        f"dist.amin(1); wrapper call {ms:.4f} ms, kernel alone on the "
+        f"device {'not measured' if dev_ms is None else f'{dev_ms:.4f} ms'}"
+        f" (profiler), plain {plain_ms:.4f} ms, torch.cdist (unsquared "
+        f"distances, no min) {cdist_ms:.4f} ms, bound {bound_ms:.4f} ms "
+        f"({bound_by}); kernel runs {times['kernel']} plain runs "
+        f"{times['plain']}")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": cdist_ms, "kernel_device_ms": dev_ms}
+
+
+def load_model_config(spec):
     from protoasnet_tpu_torch.utils.config import load_config
 
-    return load_config(str(CONFIG))
+    return load_config(str(CONFIGS / spec["config"]))
+
+
+class _NoTF32:
+    """fp32 convolutions and products at full fp32 on the card."""
+
+    def __enter__(self):
+        self.saved = (torch.backends.cudnn.allow_tf32,
+                      torch.backends.cuda.matmul.allow_tf32)
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+    def __exit__(self, *exc):
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = self.saved
+
+
+def _max_diff(a, b) -> float:
+    return (a.float().cpu() - b.float().cpu()).abs().max().item()
 
 
 def phase_model(dev, cfg):
@@ -187,30 +323,21 @@ def phase_model(dev, cfg):
     model = build_model(mcfg, device=dev, seed=0)
     x = torch.from_numpy(np.random.default_rng(2).normal(
         size=(2, *CLIP)).astype(np.float32))
-    tf32 = (torch.backends.cudnn.allow_tf32,
-            torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        with torch.inference_mode():
-            lk, sk, ok = model(x.to(dev))
-            model.head_impl = "torch"
-            lp, sp, op = model(x.to(dev))
-            model.head_impl = None
-            cpu_model = build_model(mcfg, device="cpu", seed=0)
-            lc, sc, _ = cpu_model(x)
-    finally:
-        (torch.backends.cudnn.allow_tf32,
-         torch.backends.cuda.matmul.allow_tf32) = tf32
+    with _NoTF32(), torch.inference_mode():
+        lk, sk, ok = model(x.to(dev))
+        model.head_impl = "torch"
+        lp, sp, op = model(x.to(dev))
+        model.head_impl = None
+        cpu_model = build_model(mcfg, device="cpu", seed=0)
+        lc, sc, _ = cpu_model(x)
     occ_shape = (2, CLIP[0] // 4, CLIP[1] // 8, CLIP[2] // 8, 40)
     if lk.shape != (2, 4) or ok.shape != occ_shape:
         raise AssertionError(f"shapes {tuple(lk.shape)} {tuple(ok.shape)}")
     for t in (lk, sk, ok):
         if not torch.isfinite(t).all():
             raise AssertionError("non-finite model output")
-    d_head = max((lk - lp).abs().max().item(), (sk - sp).abs().max().item())
-    d_cpu = max((lk.cpu() - lc).abs().max().item(),
-                (sk.cpu() - sc).abs().max().item())
+    d_head = max(_max_diff(lk, lp), _max_diff(sk, sp))
+    d_cpu = max(_max_diff(lk, lc), _max_diff(sk, sc))
     scale = lc.abs().max().item()
     log(f"[3 model] flagship fp32 (N=2, 32x112x112): kernel head vs plain "
         f"head max abs diff {d_head:.3e}; card vs CPU max abs diff "
@@ -223,6 +350,68 @@ def phase_model(dev, cfg):
         raise AssertionError(f"card vs CPU logits: {d_cpu:.3e}")
 
 
+def phase_model_2d(dev, spec):
+    """fp32 image model at 224x224, N=2: kernel head vs plain head on the
+    card, and the card vs the CPU; ProtoPNet also through
+    ``push_forward`` (its per-patch distance map)."""
+    from protoasnet_tpu_torch.models.builder import build_model
+
+    mcfg = dict(load_model_config(spec)["model"], dtype="float32")
+    ppnet = mcfg["name"] == "ProtoPNet"
+    model = build_model(mcfg, device=dev, seed=0)
+    cpu_model = build_model(mcfg, device="cpu", seed=0)
+    x = torch.from_numpy(np.random.default_rng(5).normal(
+        size=(2, *spec["sample"])).astype(np.float32))
+
+    def run(m, xx):
+        outs = list(m(xx))
+        if ppnet:
+            outs += list(m.push_forward(xx))
+        return outs
+
+    with _NoTF32(), torch.inference_mode():
+        kern = run(model, x.to(dev))
+        model.head_impl = "torch"
+        plain = run(model, x.to(dev))
+        model.head_impl = None
+        cpu = run(cpu_model, x)
+    for t in kern:
+        if not torch.isfinite(t).all():
+            raise AssertionError(f"{spec['label']}: non-finite output")
+    k = int(mcfg["num_classes"])
+    if tuple(kern[0].shape) != (2, k):
+        raise AssertionError(f"{spec['label']}: logits {kern[0].shape}")
+    names = (["logits", "min_distances", "conv_features", "distances"]
+             if ppnet else ["logits", "sim01", "occurrence"])
+    d_head = {n: _max_diff(a, b) for n, a, b in zip(names, kern, plain)}
+    d_cpu = {n: _max_diff(a, b) for n, a, b in zip(names, kern, cpu)}
+    scale = cpu[0].abs().max().item()
+    log(f"[3 model] {spec['label']} fp32 (N=2, {spec['sample'][0]}x"
+        f"{spec['sample'][1]}): kernel head vs "
+        f"plain head max abs diff {d_head}; card vs CPU {d_cpu} (|logits| "
+        f"up to {scale:.3f})")
+    if ppnet:
+        conv, protos = kern[2].double(), model.prototype_vectors.double()
+        # as in phase 2: the cancellation error follows |x|^2 + |w|^2
+        l2_scale = ((conv ** 2).sum(-1).max()
+                    + (protos ** 2).sum(-1).max()).item()
+        dist_scale = max(1.0, cpu[3].abs().max().item())
+        if max(d_head["min_distances"], d_head["distances"]) \
+                > 1e-5 * l2_scale:
+            raise AssertionError(f"kernel vs plain distances: {d_head}")
+        if max(d_cpu["min_distances"], d_cpu["distances"]) \
+                > 1e-3 * dist_scale:
+            raise AssertionError(f"card vs CPU distances: {d_cpu}")
+    elif d_head["sim01"] > 1e-4:
+        raise AssertionError(f"kernel head vs plain head: {d_head}")
+    # the heads' fp32 rounding moves the logits far less than this
+    if d_head["logits"] > 1e-4:
+        raise AssertionError(f"kernel head vs plain head logits: {d_head}")
+    # cuDNN vs CPU convolutions in fp32 (TF32 off) through 20 convs
+    if d_cpu["logits"] > 1e-3 * max(1.0, scale):
+        raise AssertionError(f"card vs CPU logits: {d_cpu}")
+
+
 def _post(url, arr):
     buf = io.BytesIO()
     np.save(buf, arr)
@@ -232,21 +421,30 @@ def _post(url, arr):
         return np.load(io.BytesIO(r.read()))
 
 
-def phase_serve(dev, cfg):
-    """The main path: bundle -> serve_forever -> POST -> logits. Returns
+def _counters():
+    from protoasnet_tpu_torch.ops.l2_min_cuda import l2_min_cuda
+    from protoasnet_tpu_torch.ops.roi_cosine_cuda import roi_cosine_cuda
+
+    return {"roi_cosine_cuda": roi_cosine_cuda, "l2_min_cuda": l2_min_cuda}
+
+
+def phase_serve(dev, spec, cfg):
+    """One main path: bundle -> serve_forever -> POST -> logits. Returns
     the kernels' launch counts of this path (set to 0 at its start, read
     once the server has stopped, before the reference forwards)."""
     from protoasnet_tpu_torch import server
     from protoasnet_tpu_torch.models.builder import build_model
-    from protoasnet_tpu_torch.ops.roi_cosine_cuda import roi_cosine_cuda
     from protoasnet_tpu_torch.serve import (load_serving_bundle,
                                             make_serving_fn,
                                             save_serving_bundle)
 
-    model = build_model(cfg["model"], device="cpu", seed=0)  # bf16 config
+    sample, label = spec["sample"], spec["label"]
+    model = build_model(cfg["model"], device="cpu", seed=0)
+    bf16 = model.dtype == torch.bfloat16
+    counters = _counters()
     with tempfile.TemporaryDirectory() as tmp:
-        path = str(Path(tmp) / "flagship.zip")
-        save_serving_bundle(path, model, cfg["model"], CLIP)
+        path = str(Path(tmp) / "bundle.zip")
+        save_serving_bundle(path, model, cfg["model"], sample)
         ready, stop = threading.Event(), threading.Event()
         errors = []
 
@@ -261,7 +459,8 @@ def phase_serve(dev, cfg):
                 ready.set()
 
         served = []
-        roi_cosine_cuda.launches = 0
+        for fn in counters.values():
+            fn.launches = 0
         t = threading.Thread(target=run, name="smoke-server", daemon=True)
         t.start()
         try:
@@ -271,7 +470,7 @@ def phase_serve(dev, cfg):
             rng = np.random.default_rng(3)
             t0 = time.monotonic()
             for n in (1, 3, 8, 2):
-                x = rng.normal(size=(n, *CLIP)).astype(np.float32)
+                x = rng.normal(size=(n, *sample)).astype(np.float32)
                 served.append((x, _post(url, x)))
             serve_s = time.monotonic() - t0
             with urllib.request.urlopen(url + "/healthz", timeout=30) as r:
@@ -281,69 +480,77 @@ def phase_serve(dev, cfg):
         finally:
             stop.set()
             t.join(120)
-        launches = {"roi_cosine_cuda": roi_cosine_cuda.launches}
+        launches = {name: fn.launches for name, fn in counters.items()}
         if t.is_alive() or errors:
             raise RuntimeError(f"server did not stop cleanly: {errors}")
         direct = load_serving_bundle(path, device=dev)
         worst = 0.0
+        k = int(cfg["model"]["num_classes"])
         for x, out in served:
             n = len(x)
-            if out.shape != (n, 4) or not np.isfinite(out).all():
-                raise AssertionError(f"served logits {out.shape}")
-            # the batcher pads to the next bucket with zero clips; the
+            if out.shape != (n, k) or not np.isfinite(out).all():
+                raise AssertionError(f"{label}: served logits {out.shape}")
+            # the batcher pads to the next bucket with zero samples; the
             # direct forward gets the same padded batch
             bucket = next(b for b in (1, 2, 4, 8) if b >= n)
-            xp = np.zeros((bucket, *CLIP), np.float32)
+            xp = np.zeros((bucket, *sample), np.float32)
             xp[:n] = x
             worst = max(worst, float(np.abs(out - direct(xp)[:n]).max()))
-        # the 8-clip request against the same weights with the plain head
+        # the 8-sample request against the same weights with the plain head
         x8, out8 = served[2]
         model.to(dev).head_impl = "torch"
         d_plain = float(np.abs(out8 - make_serving_fn(model)(x8)).max())
-    log(f"[4 serve] 4 POSTs (1,3,8,2 clips, bf16 flagship) in "
-        f"{serve_s:.2f}s; served vs direct forward max abs diff {worst:.3e}, "
-        f"8 clips vs plain head {d_plain:.3e}; "
-        f"healthz {health!r}; stats requests={stats['requests']} "
-        f"samples={stats['samples']} batches={stats['batches']} "
-        f"p50={stats['latency_ms_p50']}ms")
+    log(f"[4 serve {label}] 4 POSTs (1,3,8,2 {spec['unit']}, "
+        f"{'bf16' if bf16 else 'fp32'}) in {serve_s:.2f}s; served vs direct "
+        f"forward max abs diff {worst:.3e}, 8 {spec['unit']} vs plain head "
+        f"{d_plain:.3e}; healthz {health!r}; stats "
+        f"requests={stats['requests']} samples={stats['samples']} "
+        f"batches={stats['batches']} p50={stats['latency_ms_p50']}ms; "
+        f"launches {launches}")
     # the same padded batch through the same weights on the same card
     if worst > 1e-3:
-        raise AssertionError(f"served logits differ from direct: {worst}")
-    # same bf16 trunk; the heads' fp32 sims differ by ~1e-6, which can flip
-    # one bf16 rounding of a sim (2^-9) before the bf16 readout
-    if d_plain > 2e-2:
-        raise AssertionError(f"served logits vs plain head: {d_plain}")
+        raise AssertionError(f"{label}: served logits differ from direct: "
+                             f"{worst}")
+    # bf16: same trunk; the heads' fp32 outputs differ by ~1e-6, which can
+    # flip one bf16 rounding (2^-9) before the bf16 readout. fp32: only the
+    # heads' summation order differs
+    if d_plain > (2e-2 if bf16 else 1e-4):
+        raise AssertionError(f"{label}: served logits vs plain head: "
+                             f"{d_plain}")
     if health != "ok" or stats["samples"] != 14 or stats["errors"]:
-        raise AssertionError(f"server stats {stats}")
+        raise AssertionError(f"{label}: server stats {stats}")
     return launches
 
 
-def phase_throughput(dev, cfg):
+def phase_throughput(dev, spec, cfg):
     from protoasnet_tpu_torch.models.builder import build_model
     from protoasnet_tpu_torch.serve import make_serving_fn
 
-    model = build_model(cfg["model"], device=dev, seed=0)  # bf16
+    model = build_model(cfg["model"], device=dev, seed=0)
+    dt = "bf16" if model.dtype == torch.bfloat16 else "fp32"
+    label, unit, sample = spec["label"], spec["unit"], spec["sample"]
     out = {}
     for b in (32, 128):
-        x = torch.randn((b, *CLIP), device=dev)
+        x = torch.randn((b, *sample), device=dev)
         with torch.inference_mode():
             torch.cuda.reset_peak_memory_stats()
             ms = time_ms(lambda: model(x), iters=5, warmup=2)
         out[b] = b / ms * 1e3
-        log(f"[5 throughput] bf16 forward batch {b}: {ms:.2f} ms/batch, "
-            f"{out[b]:.1f} clips/s, peak memory "
+        log(f"[5 throughput] {label} {dt} forward batch {b}: {ms:.2f} "
+            f"ms/batch, {out[b]:.1f} {unit}/s, peak memory "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    # the serving function as the batcher calls it: numpy clips in (host
+    # the serving function as the batcher calls it: numpy samples in (host
     # to device copy included), numpy logits out, host clock
     fn = make_serving_fn(model)
-    x = np.random.default_rng(4).normal(size=(128, *CLIP)).astype(np.float32)
+    x = np.random.default_rng(4).normal(
+        size=(128, *sample)).astype(np.float32)
     fn(x)
     t0 = time.perf_counter()
     for _ in range(3):
         fn(x)
     ms = (time.perf_counter() - t0) / 3 * 1e3
-    log(f"[5 throughput] bf16 serving fn batch 128 (numpy in/out): "
-        f"{ms:.2f} ms/batch, {128 / ms * 1e3:.1f} clips/s")
+    log(f"[5 throughput] {label} {dt} serving fn batch 128 (numpy in/out): "
+        f"{ms:.2f} ms/batch, {128 / ms * 1e3:.1f} {unit}/s")
     return out
 
 
@@ -352,29 +559,48 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
               "runs on an NVIDIA GPU", file=sys.stderr)
         return 2
-    from protoasnet_tpu_torch.ops.roi_cosine_cuda import REPLACES, SOURCE
+    from protoasnet_tpu_torch.ops import l2_min_cuda as l2_mod
+    from protoasnet_tpu_torch.ops import roi_cosine_cuda as roi_mod
 
     dev = torch.device("cuda")
     card = card_line()
     log(f"python {sys.version.split()[0]} torch {torch.__version__} cuda "
         f"{torch.version.cuda}; device {torch.cuda.get_device_name(0)} "
-        f"x{torch.cuda.device_count()}")
-    cfg = load_flagship_config()
+        f"x{torch.cuda.device_count()}; {card}")
+    cfgs = {spec["label"]: load_model_config(spec)
+            for spec in (VIDEO, PPNET, IMAGE)}
     phase_build()
-    head = phase_head(dev)
-    phase_model(dev, cfg)
-    launches = phase_serve(dev, cfg)
-    if not all(launches.values()):
-        raise AssertionError(f"a kernel of the main path never launched: "
-                             f"{launches}")
+    head = phase_head(dev, HEAD, "video")
+    phase_head(dev, IMAGE_HEAD, "image")
+    l2 = phase_l2(dev)
+    phase_model(dev, cfgs[VIDEO["label"]])
+    phase_model_2d(dev, PPNET)
+    phase_model_2d(dev, IMAGE)
+    # each main path with the counts set to 0 just before it and read just
+    # after it; each must launch the kernel(s) of its head
+    launches = {name: 0 for name in _counters()}
+    for spec, kernels in ((VIDEO, ["roi_cosine_cuda"]),
+                          (PPNET, ["l2_min_cuda"]),
+                          (IMAGE, ["roi_cosine_cuda"])):
+        got = phase_serve(dev, spec, cfgs[spec["label"]])
+        if not all(got[k] for k in kernels):
+            raise AssertionError(f"{spec['label']}: a kernel of its path "
+                                 f"never launched: {got}")
+        for name, count in got.items():
+            launches[name] += count
     log(f"[4 serve] kernels: {json.dumps(sorted(launches))}; launches on "
-        f"the main path: {launches}")
-    phase_throughput(dev, cfg)
+        f"the main paths: {launches}")
+    for spec in (VIDEO, PPNET, IMAGE):
+        phase_throughput(dev, spec, cfgs[spec["label"]])
     print(card)
-    print(json.dumps({"kernels": [dict(
-        name="roi_cosine_cuda", route="cuda", source=SOURCE,
-        replaces=REPLACES, launches=launches["roi_cosine_cuda"],
-        library_ms=None, **head)]}))
+    print(json.dumps({"kernels": [
+        dict(name="roi_cosine_cuda", route="cuda", source=roi_mod.SOURCE,
+             replaces=roi_mod.REPLACES,
+             launches=launches["roi_cosine_cuda"], library_ms=None, **head),
+        dict(name="l2_min_cuda", route="cuda", source=l2_mod.SOURCE,
+             replaces=l2_mod.REPLACES, launches=launches["l2_min_cuda"],
+             **l2),
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -5,11 +5,13 @@ JAX leaves), so this module needs no JAX. The port's module names follow
 the JAX tree, so each JAX key maps to one state_dict key:
 
   .../kernel (kD,kH,kW,I,O)  -> .../weight (O,I,kD,kH,kW)   Conv3d
+  .../kernel (kH,kW,I,O)     -> .../weight (O,I,kH,kW)      Conv2d
   .../kernel (I,O)           -> .../weight (O,I)            Linear
   .../bias                   -> .../bias
   .../scale                  -> .../weight                  BatchNorm
   batch_stats .../mean, var  -> .../running_mean, running_var
-  prototype_vectors (P,D)    -> prototype_vectors
+  prototype_vectors          -> prototype_vectors, unchanged: (P,D) for
+                                XProtoNet, (P,kh,kw,D) for PPNet
 
 Any key missing on either side, or a shape that disagrees, raises.
 """
@@ -43,6 +45,8 @@ def _param_key(path: Tuple[str, ...], arr: np.ndarray
     if name == "kernel":
         if arr.ndim == 5:
             return f"{prefix}.weight", np.transpose(arr, (4, 3, 0, 1, 2))
+        if arr.ndim == 4:
+            return f"{prefix}.weight", np.transpose(arr, (3, 2, 0, 1))
         if arr.ndim == 2:
             return f"{prefix}.weight", arr.T
         raise ValueError(f"kernel {'/'.join(path)} has rank {arr.ndim}")

@@ -1,4 +1,4 @@
-"""Video-XProtoNet (ProtoASNet), PyTorch.
+"""XProtoNet (ProtoASNet), image and video, PyTorch.
 
 Forward contract, as the JAX package's ``XProtoNet``:
   forward                -> (logits (N,K), similarity01 (N,P), occurrence)
@@ -6,10 +6,11 @@ Forward contract, as the JAX package's ``XProtoNet``:
                              occurrence, logits)
   compute_occurrence_map -> occurrence
 
-Input clips are channels-last (N, T, H, W, 3). The trunk runs NCDHW; its
-output is permuted once to channels-last (N, T', H', W', C), so the head
-layers are Linears over channels and the occurrence map comes back
-channels-last (N, T', H', W', P).
+Inputs are channels-last: clips (N, T, H, W, 3) for a video trunk, images
+(N, H, W, 3) for a 2-D trunk. The trunk runs channels-first (NCDHW or
+NCHW); its output is permuted once to channels-last, so the head layers
+are Linears over channels and the occurrence map comes back channels-last
+(N, [T',] H', W', P).
 
 ``dtype=torch.bfloat16`` runs the convs and Linears under bf16 autocast
 (BatchNorm statistics stay fp32); the prototype head takes the bf16
@@ -25,7 +26,8 @@ from torch import nn
 
 from protoasnet_tpu_torch.models.backbones import make_backbone
 from protoasnet_tpu_torch.models.layers import (AddOnLayers, OccurrenceModule,
-                                                PrototypeReadout)
+                                                PrototypeReadout,
+                                                bf16_autocast, init_weights_)
 from protoasnet_tpu_torch.ops.roi_cosine import roi_cosine_head
 
 __all__ = ["XProtoNet"]
@@ -59,26 +61,19 @@ class XProtoNet(nn.Module):
         generator; call before moving the model to the card): kaiming-normal
         fan-out convs and Linears, zero biases, unit BN, U(0,1) prototypes,
         readout at incorrect-connection strength 0."""
-        for m in self.modules():
-            if isinstance(m, (nn.Conv3d, nn.Linear)):
-                fan_out = m.weight.shape[0] * m.weight[0, 0].numel()
-                m.weight.normal_(0.0, (2.0 / fan_out) ** 0.5,
-                                 generator=generator)
-                if m.bias is not None:
-                    m.bias.zero_()
-            elif isinstance(m, nn.BatchNorm3d):
-                m.reset_parameters()
+        init_weights_(self, generator)
         self.prototype_vectors.uniform_(0.0, 1.0, generator=generator)
         self.last_layer.reset_incorrect_connection(0.0)
 
     def _autocast(self, x: torch.Tensor):
-        return torch.autocast(x.device.type, dtype=torch.bfloat16,
-                              enabled=self.dtype == torch.bfloat16)
+        return bf16_autocast(x, self.dtype)
 
     def _features(self, x: torch.Tensor) -> torch.Tensor:
-        """(N, T, H, W, 3) -> channels-last trunk output (N, T', H', W', C)."""
-        fmap = self.cnn_backbone(x.permute(0, 4, 1, 2, 3))
-        return fmap.permute(0, 2, 3, 4, 1).contiguous()
+        """(N, [T,] H, W, 3) -> channels-last trunk output
+        (N, [T',] H', W', C)."""
+        nd = x.dim()
+        fmap = self.cnn_backbone(x.permute(0, nd - 1, *range(1, nd - 1)))
+        return fmap.permute(0, *range(2, nd), 1).contiguous()
 
     def _heads(self, x: torch.Tensor):
         with self._autocast(x):

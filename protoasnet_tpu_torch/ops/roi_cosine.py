@@ -12,6 +12,7 @@ to the hand-written kernel (``ops/roi_cosine_cuda.py``).
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -33,9 +34,10 @@ def _acc_dtype(*tensors: torch.Tensor) -> torch.dtype:
 def roi_pool(occ: torch.Tensor, feat: torch.Tensor) -> torch.Tensor:
     """occ (N, ..., P) non-negative, feat (N, ..., D) -> (N, P, D), >= fp32."""
     n, p, d = occ.shape[0], occ.shape[-1], feat.shape[-1]
+    s = math.prod(occ.shape[1:-1])  # positions (explicit: N may be 0)
     acc = _acc_dtype(occ, feat)
-    occ2 = occ.reshape(n, -1, p).to(acc)
-    feat2 = feat.reshape(n, -1, d).to(acc)
+    occ2 = occ.reshape(n, s, p).to(acc)
+    feat2 = feat.reshape(n, s, d).to(acc)
     return torch.einsum("nsp,nsd->npd", occ2, feat2)
 
 

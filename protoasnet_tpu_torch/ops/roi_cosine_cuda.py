@@ -15,6 +15,7 @@ that requires grad is refused.
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Tuple
 
 import torch
@@ -70,12 +71,12 @@ def roi_cosine_cuda(occ: torch.Tensor, feat: torch.Tensor,
         raise ValueError(f"roi_cosine_cuda: shapes occ {tuple(occ.shape)}, "
                          f"feat {tuple(feat.shape)}, prototypes "
                          f"{tuple(prototypes.shape)} do not agree")
-    occ2 = occ.reshape(n, -1, p).contiguous()
-    feat2 = feat.reshape(n, -1, d).contiguous()
-    s = occ2.shape[1]
-    if feat2.shape[1] != s:
+    s = math.prod(occ.shape[1:-1])  # positions (explicit: N may be 0)
+    if math.prod(feat.shape[1:-1]) != s:
         raise ValueError(f"roi_cosine_cuda: occ has {s} positions, feat "
-                         f"{feat2.shape[1]}")
+                         f"{math.prod(feat.shape[1:-1])}")
+    occ2 = occ.reshape(n, s, p).contiguous()
+    feat2 = feat.reshape(n, s, d).contiguous()
     if n > _MAX_GRID_Y:
         raise ValueError(f"roi_cosine_cuda: batch {n} > {_MAX_GRID_Y}; "
                          f"split the batch")

@@ -3,11 +3,14 @@
 A JAX bundle holds StableHLO, which cannot run without JAX; the port's
 bundle holds ``config.json`` (model config, per-sample input shape, input
 kind) and ``weights.npz`` (the state_dict as numpy). Loading rebuilds the
-model on the device and returns a numpy-in, numpy-out function.
+model on the device and returns a numpy-in, numpy-out function. Video
+models take clips (T, H, W, 3) per sample, image models (ProtoPNet,
+XProtoNet) images (H, W, 3):
 
     save_serving_bundle("b.zip", model, model_config, (32, 112, 112, 3))
     fn, shape, dtype = load_serving_bundle_with_spec("b.zip")  # CUDA
     logits = fn(x)  # x (b, 32, 112, 112, 3) float32 -> (b, K) float32
+    save_serving_bundle("i.zip", ppnet, ppnet_config, (224, 224, 3))
 
 CLI:
     python -m protoasnet_tpu_torch.serve predict --bundle b.zip \
@@ -40,15 +43,19 @@ def save_serving_bundle(path: str, model: torch.nn.Module,
                         uint8_gray: bool = False) -> None:
     """Write ``model``'s weights and config to a one-file bundle.
 
-    input_shape: per-sample shape WITHOUT the batch dim, e.g.
-    (32, 112, 112, 3). uint8_gray: the bundle takes raw grayscale uint8
-    frames (input_shape minus the channel dim) and applies the eval
-    transform (/255, normalise, gray -> 3 channels) on the device.
+    input_shape: per-sample shape WITHOUT the batch dim: (T, H, W, 3) for
+    Video_XProtoNet, e.g. (32, 112, 112, 3), and (H, W, 3) for the image
+    models, e.g. (224, 224, 3). uint8_gray: the bundle takes raw grayscale
+    uint8 frames, (T, H, W) or (H, W) (input_shape minus the channel dim),
+    and applies the eval transform (/255, normalise, gray -> 3 channels) on
+    the device.
     """
     input_shape = tuple(int(s) for s in input_shape)
-    if uint8_gray and input_shape[-1] != 3:
-        raise ValueError("uint8_gray expects an input_shape with a trailing "
-                         "channel dim of 3")
+    rank = 4 if model_config["name"] == "Video_XProtoNet" else 3
+    if len(input_shape) != rank or input_shape[-1] != 3:
+        raise ValueError(f"{model_config['name']} takes samples of rank "
+                         f"{rank} with 3 trailing channels, not input_shape "
+                         f"{input_shape}")
     meta = {"format": _FORMAT, "model": dict(model_config),
             "input_shape": list(input_shape), "uint8_gray": bool(uint8_gray)}
     buf = io.BytesIO()
@@ -61,7 +68,8 @@ def save_serving_bundle(path: str, model: torch.nn.Module,
 
 def make_serving_fn(model: torch.nn.Module, uint8_gray: bool = False
                     ) -> Callable[[np.ndarray], np.ndarray]:
-    """numpy clips -> numpy float32 logits through ``model`` on its device."""
+    """numpy clips or images -> numpy float32 logits through ``model`` on
+    its device."""
     device = next(model.parameters()).device
 
     def fn(x: np.ndarray) -> np.ndarray:
@@ -142,7 +150,10 @@ def main(argv=None) -> None:
     pr = sub.add_parser("predict", help="bundle + .npy input -> logits")
     pr.add_argument("--bundle", required=True)
     pr.add_argument("--input", required=True,
-                    help=".npy array (b, T, H, W, 3) float32")
+                    help=".npy array: clips (b, T, H, W, 3) for a video "
+                         "bundle or images (b, H, W, 3) for an image "
+                         "bundle, float32; uint8 bundles take the same "
+                         "without the trailing 3")
     pr.add_argument("--out", default=None)
     pr.add_argument("--batch", type=int, default=128)
     pr.add_argument("--device", default=None,

@@ -15,7 +15,8 @@ with the same wire protocol, so the JAX package's client works against it:
 
 Usage:
     python -m protoasnet_tpu_torch.server --bundle b.zip --port 8300
-    # POST /v1/predict   body = .npy bytes (b, T, H, W[, 3]) -> .npy logits
+    # POST /v1/predict   body = .npy bytes (b, T, H, W[, 3]) for a video
+    #                    bundle, (b, H, W[, 3]) for an image bundle -> logits
     # GET  /healthz      liveness
     # GET  /v1/spec      input contract (JSON)
     # GET  /v1/stats     batching/latency counters (JSON)

@@ -1,4 +1,6 @@
-"""The port's CUDA kernel on the card, against its plain PyTorch version.
+"""The port's CUDA kernels on the card, against their plain PyTorch
+versions: ``roi_cosine_cuda`` (XProtoNet's head) and ``l2_min_cuda``
+(ProtoPNet's head).
 
 Every test here needs an NVIDIA GPU (``cuda`` marker) and skips without
 one: a CUDA kernel has no CPU mode. The file imports no JAX, so it also
@@ -12,15 +14,23 @@ import numpy as np
 import pytest
 import torch
 
+from protoasnet_tpu_torch.ops.l2_min import l2_min_torch
+from protoasnet_tpu_torch.ops.l2_min_cuda import l2_min_cuda
 from protoasnet_tpu_torch.ops.roi_cosine import roi_cosine_torch
 from protoasnet_tpu_torch.ops.roi_cosine_cuda import roi_cosine_cuda
 
 pytestmark = pytest.mark.cuda
 
 # (n, s, p, d): tiny, ragged (S, P, D off the kernel's tiles), D > 256
-# (several d tiles in one block), and the flagship head at batch 4
+# (several d tiles in one block), the flagship head at batch 4 and the
+# image ProtoASNet head (7x7 positions, D=512) at batch 4
 SHAPES = [(2, 18, 6, 16), (3, 35, 13, 40), (2, 70, 9, 300),
-          (4, 8 * 14 * 14, 40, 256)]
+          (4, 8 * 14 * 14, 40, 256), (4, 7 * 7, 40, 512)]
+# (n, s, p, d) for l2_min: ProtoPNet's head (S=49, P=30, D=512) at batch 8;
+# S off the 64-row tile (49, 70, 130), P off the 32-prototype tile (30, 7,
+# 33, 65), D = 1, 63 and 512, and N = 1
+L2_SHAPES = [(8, 49, 30, 512), (1, 49, 30, 512), (3, 70, 7, 63),
+             (2, 130, 33, 1), (2, 5, 65, 100), (1, 1, 1, 1)]
 
 
 @pytest.fixture
@@ -109,5 +119,131 @@ def test_model_head_goes_through_the_kernel(dev):
         model.head_impl = "torch"
         logits_p, sim_p, _ = model(x)
     assert roi_cosine_cuda.launches == before + 1
+    torch.testing.assert_close(sim, sim_p, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(logits, logits_p, rtol=1e-5, atol=1e-5)
+
+
+def _l2_data(shape, dev, seed=12):
+    """Sigmoid-range features and U(0,1) prototypes, as ProtoPNet's
+    "regular" add-on and its init produce."""
+    n, s, p, d = shape
+    rng = np.random.default_rng(seed)
+    x = 1.0 / (1.0 + np.exp(-rng.normal(size=(n, s, d))))
+    w = rng.uniform(size=(p, 1, 1, d))
+    return (torch.from_numpy(a.astype(np.float32)).to(dev) for a in (x, w))
+
+
+def _l2_check(x, w):
+    before = l2_min_cuda.launches
+    dist, min_d = l2_min_cuda(x, w)
+    torch.cuda.synchronize()
+    assert l2_min_cuda.launches == before + 1
+    assert dist.dtype == min_d.dtype == torch.float32
+    ref_dist, ref_min = l2_min_torch(x.double(), w.double())
+    # fp32 cancellation error follows |x|^2 + |w|^2, not dist: sums of D
+    # products are off by ~sqrt(D)*2^-24 of it (the smoke's tolerance)
+    scale = float((x.double() ** 2).sum(-1).max()
+                  + (w.double() ** 2).sum(-1).max())
+    torch.testing.assert_close(dist.double(), ref_dist, rtol=0,
+                               atol=1e-5 * scale)
+    torch.testing.assert_close(min_d.double(), ref_min, rtol=0,
+                               atol=1e-5 * scale)
+    # the minimum of exactly the values the kernel wrote
+    assert torch.equal(min_d, dist.reshape(len(x), -1, w.shape[0]).amin(1))
+
+
+@pytest.mark.parametrize("shape", L2_SHAPES)
+def test_l2_min_kernel_matches_plain(dev, shape):
+    _l2_check(*_l2_data(shape, dev))
+
+
+def test_l2_min_kernel_channels_last_and_bf16(dev):
+    """(N, H, W, D) maps as PPNet gives them, a non-contiguous x, (P, D)
+    prototypes, and bf16 features cast to fp32 by the wrapper."""
+    x, w = _l2_data((2, 6 * 5, 9, 40), dev)
+    x4 = x.reshape(2, 6, 5, 40).transpose(1, 2)
+    assert not x4.is_contiguous()
+    dist, min_d = l2_min_cuda(x4, w.reshape(9, 40))
+    ref_dist, ref_min = l2_min_torch(x4.double(), w.double())
+    assert tuple(dist.shape) == (2, 5, 6, 9)
+    torch.testing.assert_close(dist.double(), ref_dist, rtol=0, atol=1e-4)
+    torch.testing.assert_close(min_d.double(), ref_min, rtol=0, atol=1e-4)
+    xb = x.to(torch.bfloat16)
+    dist_b, _ = l2_min_cuda(xb, w)
+    ref_b, _ = l2_min_torch(xb.double(), w.double())
+    torch.testing.assert_close(dist_b.double(), ref_b, rtol=0, atol=1e-4)
+
+
+def test_l2_min_kernel_empty_batch_and_nan(dev):
+    x, w = _l2_data((2, 49, 30, 64), dev)
+    before = l2_min_cuda.launches
+    dist, min_d = l2_min_cuda(x[:0], w)
+    assert tuple(dist.shape) == (0, 49, 30) and tuple(min_d.shape) == (0, 30)
+    assert l2_min_cuda.launches == before  # nothing to launch
+    x = x.clone()
+    x[1, 7, 3] = float("nan")
+    dist, min_d = l2_min_cuda(x, w)
+    ref_dist, ref_min = l2_min_torch(x, w)
+    assert torch.isnan(dist[1, 7]).all() and torch.isnan(min_d[1]).all()
+    assert not torch.isnan(dist[0]).any()
+    torch.testing.assert_close(min_d, ref_min, rtol=0, atol=1e-4,
+                               equal_nan=True)
+
+
+def test_l2_min_kernel_refuses_bad_inputs(dev):
+    x, w = _l2_data((2, 49, 30, 64), dev)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        l2_min_cuda(x, w.clone().requires_grad_(True))
+    with pytest.raises(RuntimeError, match="forward-only"):
+        l2_min_cuda(x.clone().requires_grad_(True), w)
+    with pytest.raises(TypeError, match="computes in float32"):
+        l2_min_cuda(x.double(), w)
+    with pytest.raises(ValueError, match="must be"):
+        l2_min_cuda(x, w.reshape(30, 64, 1, 1))
+    with pytest.raises(ValueError, match="prototypes on cpu"):
+        l2_min_cuda(x, w.cpu())
+    with pytest.raises(ValueError, match="no positions"):
+        l2_min_cuda(x[:, :0], w)
+
+
+def test_ppnet_head_goes_through_the_kernel(dev):
+    from protoasnet_tpu_torch.models.builder import build_model
+
+    cfg = {"name": "ProtoPNet", "base_architecture": "resnet18",
+           "prototype_shape": (6, 64, 1, 1), "num_classes": 3,
+           "img_size": 64, "add_on_layers_type": "regular",
+           "dtype": "float32"}
+    model = build_model(cfg)  # CUDA by default
+    assert next(model.parameters()).device.type == "cuda"
+    x = torch.randn((2, 64, 64, 3), device=dev)
+    before = l2_min_cuda.launches
+    with torch.inference_mode():
+        logits, min_d = model(x)
+        _, dist = model.push_forward(x)
+        model.head_impl = "torch"
+        logits_p, min_p = model(x)
+        _, dist_p = model.push_forward(x)
+    assert l2_min_cuda.launches == before + 2
+    assert tuple(dist.shape) == (2, 2, 2, 6)
+    torch.testing.assert_close(min_d, min_p, rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(dist, dist_p, rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(logits, logits_p, rtol=1e-5, atol=1e-4)
+
+
+def test_image_xprotonet_head_goes_through_the_kernel(dev):
+    from protoasnet_tpu_torch.models.builder import build_model
+
+    cfg = {"name": "XProtoNet", "base_architecture": "resnet18",
+           "prototype_shape": (8, 64, 1, 1), "num_classes": 4,
+           "img_size": 64, "dtype": "float32"}
+    model = build_model(cfg)
+    x = torch.randn((2, 64, 64, 3), device=dev)
+    before = roi_cosine_cuda.launches
+    with torch.inference_mode():
+        logits, sim, occ = model(x)
+        model.head_impl = "torch"
+        logits_p, sim_p, _ = model(x)
+    assert roi_cosine_cuda.launches == before + 1
+    assert tuple(occ.shape) == (2, 2, 2, 8)
     torch.testing.assert_close(sim, sim_p, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(logits, logits_p, rtol=1e-5, atol=1e-5)

@@ -45,8 +45,10 @@ def test_port_imports_no_jax():
     proc = _run(["-c", _IMPORT_ALL], REPO)
     assert proc.returncode == 0, proc.stderr
     out = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert "protoasnet_tpu_torch.ops.roi_cosine_cuda" in out["modules"]
-    assert "protoasnet_tpu_torch.server" in out["modules"]
+    for name in ("ops.roi_cosine_cuda", "ops.l2_min_cuda", "ops.l2_min",
+                 "ops.l2conv", "models.protopnet",
+                 "models.backbones.resnet2d", "server"):
+        assert "protoasnet_tpu_torch." + name in out["modules"], name
     assert out["bad"] == []
 
 

@@ -183,13 +183,19 @@ def test_flagship_config_builds_at_full_width():
 
 def test_unported_models_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(dict(CFG, name="ProtoPNet"), device="cpu")
+        build_model(dict(CFG, name="XProtoNet",
+                         base_architecture="densenet121"), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model(dict(CFG, base_architecture="r3d_18"), device="cpu")
     from protoasnet_tpu_torch.models.backbones import make_backbone
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_backbone("resnet18")
+    for name in ("vgg16", "vgg11_bn", "densenet121"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            make_backbone(name)
+    with pytest.raises(ValueError, match="video backbone"):
+        build_model(dict(CFG, base_architecture="resnet18"), device="cpu")
+    with pytest.raises(ValueError, match="unknown model name"):
+        build_model(dict(CFG, name="PPNet"), device="cpu")
 
 
 def test_config_override_parsing_matches_jax():

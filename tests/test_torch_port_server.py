@@ -258,3 +258,81 @@ def test_predict_cli(bundle, tmp_path):
     np.testing.assert_allclose(np.load(tmp_path / "y.npy"), _forward(model, x),
                                rtol=1e-5, atol=1e-5)
     assert load_serving_bundle(path, device="cpu")(x[:1]).shape == (1, 4)
+
+
+# image bundles: ProtoPNet (fused L2 + min head) and image XProtoNet
+# (ROI-cosine head), 64x64 RGB images, ResNet-18 trunk
+IMAGE_CFGS = {
+    "ProtoPNet": {"name": "ProtoPNet", "base_architecture": "resnet18",
+                  "prototype_shape": (6, 64, 1, 1), "num_classes": 3,
+                  "img_size": 64, "add_on_layers_type": "regular"},
+    "XProtoNet": {"name": "XProtoNet", "base_architecture": "resnet18",
+                  "prototype_shape": (8, 64, 1, 1), "num_classes": 4,
+                  "img_size": 64},
+}
+IMAGE = (64, 64, 3)
+
+
+@pytest.mark.parametrize("name", sorted(IMAGE_CFGS))
+def test_image_bundle_served_over_http(tmp_path, name):
+    cfg = IMAGE_CFGS[name]
+    model = build_model(cfg, device="cpu", seed=5)
+    path = str(tmp_path / "image.zip")
+    save_serving_bundle(path, model, cfg, IMAGE)
+    ready, stop = threading.Event(), threading.Event()
+    t = threading.Thread(
+        target=server.serve_forever, args=(path,),
+        kwargs=dict(host="127.0.0.1", port=0, max_batch=4, max_delay_ms=5.0,
+                    warmup=True, ready_event=ready, stop_event=stop,
+                    device="cpu"),
+        daemon=True)
+    t.start()
+    try:
+        assert ready.wait(120), "server did not bind"
+        url = f"http://127.0.0.1:{ready.port}"
+        with urllib.request.urlopen(url + "/v1/spec", timeout=10) as r:
+            assert json.loads(r.read())["sample_shape"] == list(IMAGE)
+        rng = np.random.default_rng(60)
+        for n in (1, 3):
+            x = rng.normal(size=(n, *IMAGE)).astype(np.float32)
+            code, out = _post(url, x)
+            assert code == 200, out
+            assert out.shape == (n, cfg["num_classes"])
+            np.testing.assert_allclose(out, _forward(model, x), rtol=1e-5,
+                                       atol=1e-5)
+        # one unbatched image (rank 3) is batched; a clip is refused
+        code, out = _post(url, x[0])
+        assert code == 200
+        np.testing.assert_allclose(out, _forward(model, x[:1]), rtol=1e-5,
+                                   atol=1e-5)
+        code, msg = _post(url, np.zeros((1, 8, *IMAGE), np.float32))
+        assert code == 400, msg
+    finally:
+        stop.set()
+        t.join(30)
+    assert not t.is_alive(), "server did not stop"
+
+
+def test_uint8_gray_image_bundle(tmp_path):
+    cfg = IMAGE_CFGS["ProtoPNet"]
+    model = build_model(cfg, device="cpu", seed=6)
+    path = str(tmp_path / "u8.zip")
+    save_serving_bundle(path, model, cfg, IMAGE, uint8_gray=True)
+    fn, shape, dtype = load_serving_bundle_with_spec(path, device="cpu")
+    assert shape == (None, 64, 64) and dtype == np.uint8
+    raw = np.random.default_rng(2).integers(0, 256, size=(2, 64, 64),
+                                            dtype=np.uint8)
+    xf = (raw.astype(np.float32) / 255.0 - 0.099) / 0.171
+    xf = np.repeat(xf[..., None], 3, axis=-1)
+    np.testing.assert_allclose(fn(raw), _forward(model, xf), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_bundle_refuses_a_sample_shape_of_the_wrong_rank(tmp_path):
+    cfg = IMAGE_CFGS["XProtoNet"]
+    model = build_model(cfg, device="cpu")
+    with pytest.raises(ValueError, match="rank 3"):
+        save_serving_bundle(str(tmp_path / "a.zip"), model, cfg,
+                            (8, *IMAGE))
+    with pytest.raises(ValueError, match="rank 4"):
+        save_serving_bundle(str(tmp_path / "b.zip"), model, CFG, IMAGE)
