@@ -1,6 +1,7 @@
 """Chip smoke of the PyTorch/H100 port: the serving paths of the video
 flagship (Video ProtoASNet), the ProtoPNet baseline and the image
-ProtoASNet on one NVIDIA GPU, through the hand-written CUDA kernels.
+ProtoASNet on one NVIDIA GPU, through the hand-written CUDA kernels, and
+the experiment entry points of the R(2+1)D block kernels.
 
     python3 chip_smoke.py
 
@@ -18,14 +19,26 @@ raises and the script exits non-zero without printing a result):
 3. build each model at full width with seeded random weights; at fp32
    with TF32 off hold the kernel-head outputs against the plain-head
    outputs on the card, and the card's logits against the same model on
-   the CPU (for ProtoPNet also the ``push_forward`` distance map);
+   the CPU (for ProtoPNet also the ``push_forward`` distance map); fold
+   three of the flagship's stride-1 Conv2Plus1D blocks (layer1_0.conv1,
+   layer2_1.conv1, layer3_1.conv1, with seeded BN statistics) and hold
+   ``fused_c2p1d_cuda`` against the float64 plain version and the
+   module's own eval forward (fp32, 1e-5 of max |ref|) and the plain
+   version on the same bf16 inputs (bf16, 1e-2);
 4. the main paths, one after the other: write a port bundle,
    ``server.serve_forever`` on port 0 in a thread, POST samples to
    /v1/predict, check the logits against a direct forward and against the
    plain head, read /healthz and /v1/stats, stop. The kernels' launch
    counts are set to 0 just before each path and read just after it;
 5. samples/s of each model's forward at batch 32 and 128 and of the
-   serving function at 128.
+   serving function at 128;
+6. the R(2+1)D kernels' path: ``main`` of both experiment entry points
+   (``protoasnet_tpu_torch.experiments.temporal_conv`` at layer1 and the
+   stem, fp32 and bf16; ``...fused_c2p1d`` at layer1 in bf16 and fp32 and
+   at layer2/layer3 in bf16), each holding its kernel against the float64
+   (fp32) or bf16 plain version within the limits of phase 3 and timing
+   kernel, plain version, cuDNN and the bound. Both launch counts are set
+   to 0 just before and read just after; each kernel must have launched.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or of the JAX
@@ -48,9 +61,17 @@ from pathlib import Path
 import numpy as np
 import torch
 
+# the bounds use the H100's published peaks (HBM3 bytes/s; FLOP/s for the
+# input dtype: bf16 on the tensor cores, fp32 outside them, as TF32 would
+# round the inputs); fp32 references run with TF32 off
+from protoasnet_tpu_torch.experiments.common import BATCH, TOL
+from protoasnet_tpu_torch.experiments.common import bound_ms as _bound
+from protoasnet_tpu_torch.experiments.common import max_rel_err, no_tf32
+
 REPO = Path(__file__).resolve().parent
 CONFIGS = REPO / "protoasnet_tpu" / "configs"
-SOURCES = ("roi_cosine.cu", "l2_min.cu")
+SOURCES = ("roi_cosine.cu", "l2_min.cu", "temporal_conv.cu",
+           "fused_c2p1d.cu")
 # the three served models: config, per-sample input, what a sample is
 VIDEO = dict(label="video flagship", config="ours_protoasnet_video.yml",
              sample=(32, 112, 112, 3), unit="clips")
@@ -63,12 +84,6 @@ CLIP = VIDEO["sample"]
 HEAD = dict(n=128, s=8 * 14 * 14, p=40, d=256)  # video ROI-cosine head
 IMAGE_HEAD = dict(n=128, s=7 * 7, p=40, d=512)  # image ROI-cosine head
 L2_HEAD = dict(n=128, s=7 * 7, p=30, d=512)  # ProtoPNet's L2 + min head
-# published H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s, and
-# FLOP/s for the head's input dtype: bf16 inputs on the tensor cores (a
-# bf16 product with fp32 accumulation is exact), fp32 inputs outside them
-# (TF32 would round the inputs)
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOP_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
 
 def log(msg: str) -> None:
@@ -118,12 +133,6 @@ def card_line() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
-
-
-def _bound(nbytes: float, flops: float, dtype):
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOP_PER_S[dtype] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def head_bound_ms(n, s, p, d, dtype):
@@ -290,24 +299,102 @@ def phase_l2(dev):
             "library_ms": cdist_ms, "kernel_device_ms": dev_ms}
 
 
+def _hold(label, out, ref, tol):
+    """Max abs error of ``out`` against ``ref`` and that over max |ref|;
+    raises past ``tol`` of max |ref|."""
+    err, rel = max_rel_err(out, ref)
+    if not rel <= tol:
+        raise AssertionError(f"{label}: max abs err {err:.3e} is {rel:.3e} "
+                             f"of max |ref|, past {tol:g}")
+    return err, rel
+
+
+def _hold_both(label, kernel, plain, args32):
+    """Run ``kernel`` on fp32 and bf16 copies of ``args32`` (float tensors;
+    1-D ones, the affine, stay fp32) and hold it against ``plain``: fp32
+    against float64, bf16 against bf16. Returns {dtype: (err, rel, err64)}
+    with err64 the error against float64."""
+    out = {}
+    ref64 = plain(*(a.double() for a in args32))
+    for dtype in (torch.float32, torch.bfloat16):
+        args = [a if a.dim() == 1 else a.to(dtype) for a in args32]
+        got = kernel(*args)
+        torch.cuda.synchronize()
+        if got.dtype != dtype or got.shape != ref64.shape:
+            raise AssertionError(f"{label}: {got.dtype} {tuple(got.shape)}")
+        ref = ref64 if dtype == torch.float32 else plain(*args)
+        err, rel = _hold(f"{label} {dtype}", got, ref, TOL[dtype])
+        out[dtype] = (err, rel, (got.double() - ref64).abs().max().item())
+    return out
+
+
+def _log_both(tag, label, res):
+    log(f"[{tag}] {label}: " + "; ".join(
+        f"{str(dt)[6:]} max abs err {e:.3e} ({r:.3e} of max |ref|, limit "
+        f"{TOL[dt]:g}; vs float64 {e64:.3e})"
+        for dt, (e, r, e64) in res.items()))
+
+
+# three of the flagship's stride-1 blocks, each the shape of the fused
+# experiment's --block, run at the experiments' batch
+FLAGSHIP_BLOCKS = {"layer1_0.conv1": "layer1", "layer2_1.conv1": "layer2",
+                   "layer3_1.conv1": "layer3"}
+
+
+def phase_flagship_blocks(dev, cfg):
+    """The fused kernel on the seeded full-width flagship's own blocks
+    (BN statistics drawn from a seeded generator, so that the affine and
+    relu(shift) != 0 are exercised), folded with ``fold_conv2plus1d``:
+    against the plain version and the module's eval forward."""
+    from protoasnet_tpu_torch.experiments.fused_c2p1d import BLOCKS
+    from protoasnet_tpu_torch.models.builder import build_model
+    from protoasnet_tpu_torch.ops.fused_c2p1d import (fold_conv2plus1d,
+                                                      fused_c2p1d_torch)
+    from protoasnet_tpu_torch.ops.fused_c2p1d_cuda import (fused_c2p1d_cuda,
+                                                           tile_positions)
+
+    model = build_model(dict(cfg["model"], dtype="float32"), device=dev,
+                        seed=0)
+    g = torch.Generator(device=dev).manual_seed(7)
+    for name, block in FLAGSHIP_BLOCKS.items():
+        t, h, w, c, cm, co = BLOCKS[block]
+        module = model.cnn_backbone.get_submodule(name).eval()
+        bn = module.bn_mid
+        widths = (module.spatial.in_channels, bn.num_features,
+                  module.temporal.out_channels)
+        if widths != (c, cm, co):  # the experiment times this block's shape
+            raise AssertionError(f"{name}: (C, Cm, Co) = {widths}, the fused "
+                                 f"experiment's {block} has {(c, cm, co)}")
+        with torch.no_grad():
+            bn.running_mean.copy_(torch.randn(cm, device=dev, generator=g)
+                                  * 0.2)
+            bn.running_var.copy_(torch.rand(cm, device=dev, generator=g)
+                                 * 1.5 + 0.5)
+            bn.weight.copy_(torch.rand(cm, device=dev, generator=g) + 0.5)
+            bn.bias.copy_(torch.randn(cm, device=dev, generator=g) * 0.2)
+        x = torch.randn((BATCH, t, h, w, c), device=dev, generator=g)
+        with no_tf32(), torch.inference_mode():
+            folded = fold_conv2plus1d(module)
+            res = _hold_both(f"fused_c2p1d_cuda {name}", fused_c2p1d_cuda,
+                             fused_c2p1d_torch, (x, *folded))
+            ref = module(x.permute(0, 4, 1, 2, 3)).permute(0, 2, 3, 4, 1)
+            err_m, rel_m = _hold(f"fused_c2p1d_cuda {name} vs the module",
+                                 fused_c2p1d_cuda(x, *folded), ref,
+                                 TOL[torch.float32])
+        _log_both("3 blocks", f"{name} ({c}->{cm}->{co} at {t}x{h}x{w}, "
+                  f"B={BATCH}; {tile_positions(torch.float32, cm)}/"
+                  f"{tile_positions(torch.bfloat16, cm)} positions per "
+                  f"block in fp32/bf16)", res)
+        log(f"[3 blocks] {name}: fp32 kernel vs the module's eval forward "
+            f"(cuDNN, TF32 off) max abs err {err_m:.3e} ({rel_m:.3e} of "
+            f"max |ref|)")
+        del x, ref
+
+
 def load_model_config(spec):
     from protoasnet_tpu_torch.utils.config import load_config
 
     return load_config(str(CONFIGS / spec["config"]))
-
-
-class _NoTF32:
-    """fp32 convolutions and products at full fp32 on the card."""
-
-    def __enter__(self):
-        self.saved = (torch.backends.cudnn.allow_tf32,
-                      torch.backends.cuda.matmul.allow_tf32)
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
-
-    def __exit__(self, *exc):
-        (torch.backends.cudnn.allow_tf32,
-         torch.backends.cuda.matmul.allow_tf32) = self.saved
 
 
 def _max_diff(a, b) -> float:
@@ -323,7 +410,7 @@ def phase_model(dev, cfg):
     model = build_model(mcfg, device=dev, seed=0)
     x = torch.from_numpy(np.random.default_rng(2).normal(
         size=(2, *CLIP)).astype(np.float32))
-    with _NoTF32(), torch.inference_mode():
+    with no_tf32(), torch.inference_mode():
         lk, sk, ok = model(x.to(dev))
         model.head_impl = "torch"
         lp, sp, op = model(x.to(dev))
@@ -369,7 +456,7 @@ def phase_model_2d(dev, spec):
             outs += list(m.push_forward(xx))
         return outs
 
-    with _NoTF32(), torch.inference_mode():
+    with no_tf32(), torch.inference_mode():
         kern = run(model, x.to(dev))
         model.head_impl = "torch"
         plain = run(model, x.to(dev))
@@ -554,13 +641,72 @@ def phase_throughput(dev, spec, cfg):
     return out
 
 
+# the experiment runs of phase 6: (label, module, argv); the first run of
+# each module is its script's default and gives the kernel's record
+EXPERIMENTS = (
+    ("temporal fp32 layer1", "temporal_conv", []),
+    ("temporal bf16 layer1", "temporal_conv", ["--bf16"]),
+    ("temporal fp32 stem", "temporal_conv", ["--stem"]),
+    ("temporal bf16 stem", "temporal_conv", ["--stem", "--bf16"]),
+    ("fused bf16 layer1", "fused_c2p1d", []),
+    ("fused fp32 layer1", "fused_c2p1d", ["--fp32"]),
+    ("fused bf16 layer2", "fused_c2p1d", ["--block", "layer2"]),
+    ("fused bf16 layer3", "fused_c2p1d", ["--block", "layer3"]),
+)
+
+
+def _r2p1d_counters():
+    from protoasnet_tpu_torch.ops.fused_c2p1d_cuda import fused_c2p1d_cuda
+    from protoasnet_tpu_torch.ops.temporal_conv_cuda import \
+        temporal_conv_cuda
+
+    return {"temporal_conv_cuda": temporal_conv_cuda,
+            "fused_c2p1d_cuda": fused_c2p1d_cuda}
+
+
+def phase_experiments():
+    """The R(2+1)D kernels' path: both experiment entry points' ``main``,
+    as ``python -m protoasnet_tpu_torch.experiments.<name>`` runs it.
+    Returns ({label: result dict}, launch counts of this path)."""
+    import importlib
+
+    counters = _r2p1d_counters()
+    runs = {}
+    for fn in counters.values():
+        fn.launches = 0
+    for label, name, argv in EXPERIMENTS:
+        log(f"[6 experiments] {label}: python -m "
+            f"protoasnet_tpu_torch.experiments.{name} {' '.join(argv)}")
+        runs[label] = importlib.import_module(
+            f"protoasnet_tpu_torch.experiments.{name}").main(argv)
+    launches = {name: fn.launches for name, fn in counters.items()}
+    if not all(launches.values()):
+        raise AssertionError(f"a kernel of the experiments' path never "
+                             f"launched: {launches}")
+    for label, r in runs.items():
+        log(f"[6 experiments] {label}: kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, cuDNN {r['library_ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}), {r['gflop']:.1f} "
+            f"GFLOP; max abs err {r['max_abs_err']:.3e} (rel "
+            f"{r['rel_err']:.3e})")
+    log(f"[6 experiments] launches on the path: {launches}")
+    return runs, launches
+
+
+def _record(r):
+    return {k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                              "bound_by", "library_ms")}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
               "runs on an NVIDIA GPU", file=sys.stderr)
         return 2
+    from protoasnet_tpu_torch.ops import fused_c2p1d_cuda as fused_mod
     from protoasnet_tpu_torch.ops import l2_min_cuda as l2_mod
     from protoasnet_tpu_torch.ops import roi_cosine_cuda as roi_mod
+    from protoasnet_tpu_torch.ops import temporal_conv_cuda as temporal_mod
 
     dev = torch.device("cuda")
     card = card_line()
@@ -574,6 +720,7 @@ def main() -> int:
     phase_head(dev, IMAGE_HEAD, "image")
     l2 = phase_l2(dev)
     phase_model(dev, cfgs[VIDEO["label"]])
+    phase_flagship_blocks(dev, cfgs[VIDEO["label"]])
     phase_model_2d(dev, PPNET)
     phase_model_2d(dev, IMAGE)
     # each main path with the counts set to 0 just before it and read just
@@ -592,6 +739,8 @@ def main() -> int:
         f"the main paths: {launches}")
     for spec in (VIDEO, PPNET, IMAGE):
         phase_throughput(dev, spec, cfgs[spec["label"]])
+    runs, r2p1d_launches = phase_experiments()
+    launches.update(r2p1d_launches)
     print(card)
     print(json.dumps({"kernels": [
         dict(name="roi_cosine_cuda", route="cuda", source=roi_mod.SOURCE,
@@ -600,6 +749,14 @@ def main() -> int:
         dict(name="l2_min_cuda", route="cuda", source=l2_mod.SOURCE,
              replaces=l2_mod.REPLACES, launches=launches["l2_min_cuda"],
              **l2),
+        dict(name="temporal_conv_cuda", route="cuda",
+             source=temporal_mod.SOURCE, replaces=temporal_mod.REPLACES,
+             launches=launches["temporal_conv_cuda"],
+             **_record(runs[EXPERIMENTS[0][0]])),
+        dict(name="fused_c2p1d_cuda", route="cuda", source=fused_mod.SOURCE,
+             replaces=fused_mod.REPLACES,
+             launches=launches["fused_c2p1d_cuda"],
+             **_record(runs[EXPERIMENTS[4][0]])),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

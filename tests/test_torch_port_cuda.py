@@ -1,6 +1,7 @@
 """The port's CUDA kernels on the card, against their plain PyTorch
-versions: ``roi_cosine_cuda`` (XProtoNet's head) and ``l2_min_cuda``
-(ProtoPNet's head).
+versions: ``roi_cosine_cuda`` (XProtoNet's head), ``l2_min_cuda``
+(ProtoPNet's head), ``temporal_conv_cuda`` and ``fused_c2p1d_cuda`` (the
+R(2+1)D block kernels).
 
 Every test here needs an NVIDIA GPU (``cuda`` marker) and skips without
 one: a CUDA kernel has no CPU mode. The file imports no JAX, so it also
@@ -14,10 +15,19 @@ import numpy as np
 import pytest
 import torch
 
+from protoasnet_tpu_torch.experiments.common import (TOL, max_rel_err,
+                                                     no_tf32)
+from protoasnet_tpu_torch.experiments.fused_c2p1d import unfused_reference
+from protoasnet_tpu_torch.ops.fused_c2p1d import (fold_conv2plus1d,
+                                                  fused_c2p1d_torch)
+from protoasnet_tpu_torch.ops.fused_c2p1d_cuda import (fused_c2p1d_cuda,
+                                                       tile_positions)
 from protoasnet_tpu_torch.ops.l2_min import l2_min_torch
 from protoasnet_tpu_torch.ops.l2_min_cuda import l2_min_cuda
 from protoasnet_tpu_torch.ops.roi_cosine import roi_cosine_torch
 from protoasnet_tpu_torch.ops.roi_cosine_cuda import roi_cosine_cuda
+from protoasnet_tpu_torch.ops.temporal_conv import temporal_conv_torch
+from protoasnet_tpu_torch.ops.temporal_conv_cuda import temporal_conv_cuda
 
 pytestmark = pytest.mark.cuda
 
@@ -247,3 +257,160 @@ def test_image_xprotonet_head_goes_through_the_kernel(dev):
     assert tuple(occ.shape) == (2, 2, 2, 8)
     torch.testing.assert_close(sim, sim_p, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(logits, logits_p, rtol=1e-5, atol=1e-5)
+
+
+# (b, t, s, c, o) for temporal_conv: tiny; the stem's C=45 -> 64; T=1 with
+# S off the 64-position tile, C off the 32-channel chunk and O off the
+# 64-output tile; C = O = 1; layer1's C=144 -> 64 at S=130
+TEMPORAL_SHAPES = [(2, 4, 16, 8, 8), (2, 5, 100, 45, 64), (3, 1, 70, 33, 65),
+                   (1, 2, 3, 1, 1), (2, 3, 130, 144, 64)]
+# (b, t, h, w, c, cm, co) for fused_c2p1d: the JAX script's small shape;
+# T=1 on a 5x7 image; W > 64 (two column tiles), Cm and Co off the tiles;
+# Cm=300 and 576 (fewer positions per block); layer1's block at B=1, T=4
+FUSED_SHAPES = [(2, 6, 8, 8, 16, 24, 16), (1, 1, 5, 7, 3, 10, 4),
+                (2, 3, 9, 70, 5, 33, 65), (1, 3, 7, 7, 8, 300, 8),
+                (1, 2, 14, 14, 16, 576, 16), (1, 4, 56, 56, 64, 144, 64)]
+
+
+def _temporal_data(shape, dev, dtype, seed=13):
+    b, t, s, c, o = shape
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(b, t, s, c)).astype(np.float32)
+    k = (rng.normal(size=(3, c, o)) * 0.05).astype(np.float32)
+    return (torch.from_numpy(a).to(dev, dtype) for a in (x, k))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", TEMPORAL_SHAPES)
+def test_temporal_kernel_matches_plain(dev, shape, dtype):
+    x, k = _temporal_data(shape, dev, dtype)
+    before = temporal_conv_cuda.launches
+    y = temporal_conv_cuda(x, k)
+    torch.cuda.synchronize()
+    assert temporal_conv_cuda.launches == before + 1
+    assert y.dtype == dtype and tuple(y.shape) == shape[:3] + (shape[4],)
+    ref = (temporal_conv_torch(x.double(), k.double())
+           if dtype == torch.float32 else temporal_conv_torch(x, k))
+    _, rel = max_rel_err(y, ref)
+    assert rel <= TOL[dtype], rel
+
+
+def test_temporal_kernel_refuses_bad_inputs(dev):
+    x, k = _temporal_data((2, 3, 10, 4, 6), dev, torch.float32)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        temporal_conv_cuda(x, k.clone().requires_grad_(True))
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        temporal_conv_cuda(x.double(), k)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        temporal_conv_cuda(x.half(), k)
+    with pytest.raises(ValueError, match="must be"):
+        temporal_conv_cuda(x[0, 0], k)
+    with pytest.raises(ValueError, match="must be"):
+        temporal_conv_cuda(x, k[:, :3])
+    with pytest.raises(ValueError, match="k on cpu"):
+        temporal_conv_cuda(x, k.cpu())
+
+
+def test_temporal_dispatcher_launches_the_kernel(dev):
+    """The wrapper sends CUDA tensors to the kernel, (B, T, H, W, C) maps
+    included; an fp32 tap with bf16 x is exact in the kernel's fp32 sums."""
+    x, k = _temporal_data((2, 3, 20, 6, 5), dev, torch.float32)
+    before = temporal_conv_cuda.launches
+    y5 = temporal_conv_cuda(x.reshape(2, 3, 4, 5, 6), k)
+    assert temporal_conv_cuda.launches == before + 1
+    assert tuple(y5.shape) == (2, 3, 4, 5, 5)
+    ref = temporal_conv_torch(x.double(), k.double())
+    assert max_rel_err(y5.reshape(2, 3, 20, 5), ref)[1] <= 1e-5
+    xb = x.bfloat16()
+    assert max_rel_err(temporal_conv_cuda(xb, k),
+                       temporal_conv_torch(xb, k))[1] <= 1e-2
+
+
+def _fused_data(shape, dev, dtype, seed=14):
+    b, t, h, w, c, cm, co = shape
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(b, t, h, w, c)).astype(np.float32)
+    ks = (rng.normal(size=(3, 3, c, cm)) * 0.05).astype(np.float32)
+    kt = (rng.normal(size=(3, cm, co)) * 0.05).astype(np.float32)
+    scale = rng.uniform(0.5, 1.5, size=cm).astype(np.float32)
+    shift = (rng.normal(size=cm) * 0.1).astype(np.float32)
+    x, ks, kt = (torch.from_numpy(a).to(dev, dtype) for a in (x, ks, kt))
+    return x, ks, torch.from_numpy(scale).to(dev), \
+        torch.from_numpy(shift).to(dev), kt
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", FUSED_SHAPES)
+def test_fused_kernel_matches_plain(dev, shape, dtype):
+    args = _fused_data(shape, dev, dtype)
+    before = fused_c2p1d_cuda.launches
+    out = fused_c2p1d_cuda(*args)
+    torch.cuda.synchronize()
+    assert fused_c2p1d_cuda.launches == before + 1
+    assert out.dtype == dtype and tuple(out.shape) == shape[:4] + (shape[6],)
+    ref = (fused_c2p1d_torch(*(a.double() for a in args))
+           if dtype == torch.float32 else fused_c2p1d_torch(*args))
+    _, rel = max_rel_err(out, ref)
+    assert rel <= TOL[dtype], rel
+
+
+def test_fused_kernel_pads_mid_with_zeros(dev):
+    """A positive shift makes relu(shift) != 0: the frames outside [0, T)
+    must still add nothing (the unfused cuDNN sequence in float64)."""
+    x, ks, scale, shift, kt = _fused_data((2, 2, 6, 5, 4, 12, 8), dev,
+                                          torch.float32)
+    shift = shift.abs() + 1.0
+    out = fused_c2p1d_cuda(x, ks, scale, shift, kt)
+    ref = unfused_reference(ks.double(), scale.double(), shift.double(),
+                            kt.double(), torch.float64)(x.double())
+    assert max_rel_err(out, ref)[1] <= 1e-5
+
+
+def test_fused_tile_positions(dev):
+    assert tile_positions(torch.float32, 144) == 64
+    assert tile_positions(torch.bfloat16, 576) == 32
+    assert tile_positions(torch.float32, 576) == 16
+    assert tile_positions(torch.float32, 100000) == 0
+
+
+def test_fused_kernel_refuses_bad_inputs(dev):
+    x, ks, scale, shift, kt = _fused_data((1, 2, 4, 4, 3, 6, 5), dev,
+                                          torch.float32)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        fused_c2p1d_cuda(x, ks.clone().requires_grad_(True), scale, shift, kt)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fused_c2p1d_cuda(x.double(), ks, scale, shift, kt)
+    with pytest.raises(ValueError, match="must be"):
+        fused_c2p1d_cuda(x[0], ks, scale, shift, kt)
+    with pytest.raises(ValueError, match="do not agree"):
+        fused_c2p1d_cuda(x, ks, scale[:4], shift, kt)
+    with pytest.raises(ValueError, match="scale on cpu"):
+        fused_c2p1d_cuda(x, ks, scale.cpu(), shift, kt)
+    wide = 100000
+    with pytest.raises(ValueError, match="do not fit"):
+        fused_c2p1d_cuda(x[..., :1], torch.zeros((3, 3, 1, wide), device=dev),
+                         torch.ones(wide, device=dev),
+                         torch.zeros(wide, device=dev),
+                         torch.zeros((3, wide, 2), device=dev))
+
+
+def test_fused_dispatcher_and_fold_on_the_card(dev):
+    """A port Conv2Plus1D folded: the wrapper launches the kernel, which
+    agrees with the module's own eval forward (fp32, TF32 off)."""
+    from protoasnet_tpu_torch.models.backbones.r2plus1d import Conv2Plus1D
+
+    torch.manual_seed(0)
+    module = Conv2Plus1D(16, 16).to(dev).eval()
+    with torch.no_grad():
+        bn = module.bn_mid
+        bn.running_mean.normal_(0.0, 0.2)
+        bn.running_var.uniform_(0.5, 2.0)
+        bn.weight.uniform_(0.5, 1.5)
+        bn.bias.normal_(0.0, 0.2)
+    x = torch.randn((2, 5, 9, 11, 16), device=dev)
+    before = fused_c2p1d_cuda.launches
+    with no_tf32(), torch.inference_mode():
+        out = fused_c2p1d_cuda(x, *fold_conv2plus1d(module))
+        ref = module(x.permute(0, 4, 1, 2, 3)).permute(0, 2, 3, 4, 1)
+    assert fused_c2p1d_cuda.launches == before + 1
+    assert max_rel_err(out, ref)[1] <= 1e-5

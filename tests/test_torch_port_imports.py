@@ -47,7 +47,10 @@ def test_port_imports_no_jax():
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     for name in ("ops.roi_cosine_cuda", "ops.l2_min_cuda", "ops.l2_min",
                  "ops.l2conv", "models.protopnet",
-                 "models.backbones.resnet2d", "server"):
+                 "models.backbones.resnet2d", "server", "ops.temporal_conv",
+                 "ops.temporal_conv_cuda", "ops.fused_c2p1d",
+                 "ops.fused_c2p1d_cuda", "experiments.common",
+                 "experiments.temporal_conv", "experiments.fused_c2p1d"):
         assert "protoasnet_tpu_torch." + name in out["modules"], name
     assert out["bad"] == []
 
@@ -99,6 +102,39 @@ def test_server_cli_refuses_without_cuda(tmp_path):
                         (8, 32, 32, 3))
     proc = _run(["-m", "protoasnet_tpu_torch.server", "--bundle", path,
                  "--port", "0", "--no_warmup"], REPO)
+    assert proc.returncode != 0
+    assert "CUDA is not available" in proc.stderr
+
+
+EXPERIMENTS = ["protoasnet_tpu_torch.experiments.temporal_conv",
+               "protoasnet_tpu_torch.experiments.fused_c2p1d"]
+
+
+@pytest.mark.parametrize("module", EXPERIMENTS)
+def test_experiment_runs_plain_on_cpu(module):
+    """``--device cpu``: the plain version at the small size against the
+    library sequence in float64, in both dtypes; the CLI as a user runs it
+    too."""
+    import importlib
+
+    main = importlib.import_module(module).main
+    for flag in ([], ["--bf16"] if "temporal" in module else ["--fp32"]):
+        res = main(["--device", "cpu", *flag])
+        assert res["device"] == "cpu" and res["rel_err"] <= res["tol"]
+        assert "ms" not in res  # no device time from a CPU run
+    proc = _run(["-m", module, "--device", "cpu"], REPO)
+    assert proc.returncode == 0, proc.stderr
+    assert "max abs err" in proc.stdout
+
+
+@pytest.mark.parametrize("module", EXPERIMENTS)
+def test_experiment_refuses_without_cuda(module):
+    _no_card()
+    import importlib
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        importlib.import_module(module).main([])
+    proc = _run(["-m", module], REPO)
     assert proc.returncode != 0
     assert "CUDA is not available" in proc.stderr
 
