@@ -9,7 +9,8 @@ Phases (each prints one or more informational lines; any failed check
 raises and the script exits non-zero without printing a result):
 
 1. build the CUDA kernels from ``protoasnet_tpu_torch/csrc`` (one ``nvcc``
-   per source, all started together) and print ptxas' registers/spills;
+   per source, all started together) and print ptxas' registers, shared
+   memory and spills of each kernel instantiation;
 2. hold each kernel against its plain PyTorch version on the card and time
    kernel, plain version, their bound and a library reference:
    ``roi_cosine_cuda`` at the video head shape (N=128, S=8*14*14, P=40,
@@ -33,9 +34,10 @@ raises and the script exits non-zero without printing a result):
 5. samples/s of each model's forward at batch 32 and 128 and of the
    serving function at 128;
 6. the R(2+1)D kernels' path: ``main`` of both experiment entry points
-   (``protoasnet_tpu_torch.experiments.temporal_conv`` at layer1 and the
-   stem, fp32 and bf16; ``...fused_c2p1d`` at layer1 in bf16 and fp32 and
-   at layer2/layer3 in bf16), each holding its kernel against the float64
+   (``protoasnet_tpu_torch.experiments.temporal_conv`` at the trunk's four
+   stride-1 temporal-conv shapes, stem, layer1, layer2 and layer3, in fp32
+   and bf16; ``...fused_c2p1d`` at layer1 in bf16 and fp32 and at
+   layer2/layer3 in bf16), each holding its kernel against the float64
    (fp32) or bf16 plain version within the limits of phase 3 and timing
    kernel, plain version, cuDNN and the bound. Both launch counts are set
    to 0 just before and read just after; each kernel must have launched.
@@ -49,6 +51,7 @@ from __future__ import annotations
 
 import io
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -62,8 +65,8 @@ import numpy as np
 import torch
 
 # the bounds use the H100's published peaks (HBM3 bytes/s; FLOP/s for the
-# input dtype: bf16 on the tensor cores, fp32 outside them, as TF32 would
-# round the inputs); fp32 references run with TF32 off
+# input dtype at fp32 accuracy: bf16 on the tensor cores, fp32 as 3xTF32 on
+# them); fp32 references run with TF32 off
 from protoasnet_tpu_torch.experiments.common import BATCH, TOL
 from protoasnet_tpu_torch.experiments.common import bound_ms as _bound
 from protoasnet_tpu_torch.experiments.common import max_rel_err, no_tf32
@@ -150,7 +153,7 @@ def l2_bound_ms(n, s, p, d, in_bytes=4):
     """Least time for the L2 + min head on an H100: x (N,S,D), w (P,D) and
     p2 (P,) read once, dist (N,S,P) and min_d (N,P) fp32 written once, vs
     2*N*S*P*D product FLOPs + 2*N*S*D for |x|^2 + 5*N*S*P for the relu
-    epilogue and the min, at the fp32 rate (the kernel may not use TF32)."""
+    epilogue and the min, at the fp32 rate (fp32 accuracy: 3xTF32)."""
     nbytes = n * s * d * in_bytes + p * d * 4 + p * 4 + n * s * p * 4 \
         + n * p * 4
     flops = 2 * n * s * p * d + 2 * n * s * d + 5 * n * s * p
@@ -168,9 +171,24 @@ def phase_build():
     log(f"[1 build] {', '.join(SOURCES)} -> sm_90a in "
         f"{time.monotonic() - t0:.1f}s")
     for src, text in cuda_build.build_logs.items():
+        kernel = ""
         for line in text.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
-                log(f"[1 build] {src}: {line.strip()}")
+            entry = re.search(r"Compiling entry function '([^']+)'", line)
+            if entry:
+                kernel = _demangle(entry.group(1))
+            elif "registers" in line or "spill" in line or "smem" in line:
+                log(f"[1 build] {src} {kernel}: {line.strip()}")
+
+
+def _demangle(name: str) -> str:
+    """A kernel's mangled name as name<template arguments> (c++filt), or
+    as it is where c++filt is missing."""
+    try:
+        out = subprocess.run(["c++filt"], input=name, capture_output=True,
+                             text=True, timeout=30).stdout.strip()
+    except OSError:
+        return name
+    return re.sub(r"^void |\(anonymous namespace\)::|\(.*$", "", out) or name
 
 
 def _head_errors(occ, feat, protos):
@@ -641,18 +659,21 @@ def phase_throughput(dev, spec, cfg):
     return out
 
 
-# the experiment runs of phase 6: (label, module, argv); the first run of
-# each module is its script's default and gives the kernel's record
+# the experiment runs of phase 6: (label, module, argv); each module's
+# script default (RECORDS) gives the kernel's record
 EXPERIMENTS = (
     ("temporal fp32 layer1", "temporal_conv", []),
     ("temporal bf16 layer1", "temporal_conv", ["--bf16"]),
-    ("temporal fp32 stem", "temporal_conv", ["--stem"]),
-    ("temporal bf16 stem", "temporal_conv", ["--stem", "--bf16"]),
+    *((f"temporal {dt} {shape}", "temporal_conv",
+       ["--shape", shape] + (["--bf16"] if dt == "bf16" else []))
+      for shape in ("stem", "layer2", "layer3") for dt in ("fp32", "bf16")),
     ("fused bf16 layer1", "fused_c2p1d", []),
     ("fused fp32 layer1", "fused_c2p1d", ["--fp32"]),
     ("fused bf16 layer2", "fused_c2p1d", ["--block", "layer2"]),
     ("fused bf16 layer3", "fused_c2p1d", ["--block", "layer3"]),
 )
+RECORDS = {"temporal_conv_cuda": "temporal fp32 layer1",
+           "fused_c2p1d_cuda": "fused bf16 layer1"}
 
 
 def _r2p1d_counters():
@@ -684,11 +705,14 @@ def phase_experiments():
         raise AssertionError(f"a kernel of the experiments' path never "
                              f"launched: {launches}")
     for label, r in runs.items():
+        tile = (f", {r['rows_per_block']} positions per block, taps "
+                f"{'resident' if r['taps_resident'] else 'in chunks'}"
+                if "rows_per_block" in r else "")
         log(f"[6 experiments] {label}: kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, cuDNN {r['library_ms']:.4f} ms, bound "
             f"{r['bound_ms']:.4f} ms ({r['bound_by']}), {r['gflop']:.1f} "
             f"GFLOP; max abs err {r['max_abs_err']:.3e} (rel "
-            f"{r['rel_err']:.3e})")
+            f"{r['rel_err']:.3e}){tile}")
     log(f"[6 experiments] launches on the path: {launches}")
     return runs, launches
 
@@ -752,11 +776,11 @@ def main() -> int:
         dict(name="temporal_conv_cuda", route="cuda",
              source=temporal_mod.SOURCE, replaces=temporal_mod.REPLACES,
              launches=launches["temporal_conv_cuda"],
-             **_record(runs[EXPERIMENTS[0][0]])),
+             **_record(runs[RECORDS["temporal_conv_cuda"]])),
         dict(name="fused_c2p1d_cuda", route="cuda", source=fused_mod.SOURCE,
              replaces=fused_mod.REPLACES,
              launches=launches["fused_c2p1d_cuda"],
-             **_record(runs[EXPERIMENTS[4][0]])),
+             **_record(runs[RECORDS["fused_c2p1d_cuda"]])),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

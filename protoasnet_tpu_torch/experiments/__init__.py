@@ -2,7 +2,8 @@
 against its plain PyTorch version and times kernel, library counterpart and
 bound on the card, at the flagship's shapes (batch 8).
 
-    python -m protoasnet_tpu_torch.experiments.temporal_conv [--bf16] [--stem]
+    python -m protoasnet_tpu_torch.experiments.temporal_conv [--bf16]
+        [--shape stem|layer1|layer2|layer3]
     python -m protoasnet_tpu_torch.experiments.fused_c2p1d [--fp32]
         [--block layer1|layer2|layer3]
 

@@ -12,10 +12,13 @@ __all__ = ["HBM_BYTES_PER_S", "PEAK_FLOP_PER_S", "BATCH", "TOL", "bound_ms",
            "time_ms", "no_tf32", "max_rel_err"]
 
 # published H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s, and
-# FLOP/s for the input dtype: bf16 on the tensor cores (a bf16 product with
-# fp32 sums is exact), fp32 outside them (TF32 would round the inputs)
+# FLOP/s for the input dtype at fp32 accuracy: bf16 on the tensor cores (a
+# bf16 product with fp32 sums is exact); fp32 also on the tensor cores, as
+# 3xTF32 (hi*hi + hi*lo + lo*hi of each operand split into two TF32s keeps
+# fp32 accuracy, where one TF32 product would round the inputs), at a third
+# of the 495 TFLOP/s TF32 rate: above the 67 TFLOP/s of the CUDA cores
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOP_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_FLOP_PER_S = {torch.bfloat16: 989e12, torch.float32: 495e12 / 3}
 
 BATCH = 8  # clips per run at the flagship's shapes, as in the JAX scripts
 

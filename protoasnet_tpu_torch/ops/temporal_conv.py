@@ -7,14 +7,17 @@ x[b, T] = 0: the temporal half of the R(2+1)D trunk's ``Conv2Plus1D`` with
 stride 1. ``temporal_conv_torch`` is the plain PyTorch version (fp32 sums,
 float64 stays float64, output in x's dtype); ``ops/temporal_conv_cuda.py``
 launches the hand-written kernel on CUDA tensors and runs this version on
-CPU ones.
+CPU ones. ``split_bf16`` and ``split_tf32`` are how that wrapper hands the
+taps to the kernel's bf16 and 3xTF32 products.
 """
 
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
 
-__all__ = ["temporal_conv_torch"]
+__all__ = ["temporal_conv_torch", "split_bf16", "split_tf32"]
 
 
 def temporal_conv_torch(x: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
@@ -27,3 +30,27 @@ def temporal_conv_torch(x: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
         y[:, 1:] += torch.einsum("bt...c,co->bt...o", xf[:, :-1], kf[0])
         y[:, :-1] += torch.einsum("bt...c,co->bt...o", xf[:, 1:], kf[2])
     return y.to(x.dtype)
+
+
+def split_bf16(k: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """k (fp32 or bf16) as two bf16 tensors, k_hi = bf16(k) and k_lo =
+    bf16(k - k_hi), so that k_hi + k_lo equals k to ~2^-18 of |k|; k_lo is
+    all zero when every value of k is a bf16 (a bf16 k)."""
+    kf = k.to(torch.float32)
+    hi = kf.to(torch.bfloat16)
+    return hi, (kf - hi.to(torch.float32)).to(torch.bfloat16)
+
+
+def _round_tf32(v: torch.Tensor) -> torch.Tensor:
+    """fp32 -> the nearest TF32 (10 mantissa bits, ties away from zero),
+    as ``cvt.rna.tf32.f32`` rounds; kept in fp32 with the low 13 bits 0."""
+    bits = v.to(torch.float32).contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def split_tf32(k: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """k as two TF32 values in fp32 tensors, hi = tf32(k) and lo = tf32(k -
+    hi): the taps' halves of the kernel's 3xTF32 products."""
+    kf = k.to(torch.float32)
+    hi = _round_tf32(kf)
+    return hi, _round_tf32(kf - hi)

@@ -26,8 +26,12 @@ from protoasnet_tpu_torch.ops.l2_min import l2_min_torch
 from protoasnet_tpu_torch.ops.l2_min_cuda import l2_min_cuda
 from protoasnet_tpu_torch.ops.roi_cosine import roi_cosine_torch
 from protoasnet_tpu_torch.ops.roi_cosine_cuda import roi_cosine_cuda
-from protoasnet_tpu_torch.ops.temporal_conv import temporal_conv_torch
-from protoasnet_tpu_torch.ops.temporal_conv_cuda import temporal_conv_cuda
+from protoasnet_tpu_torch.ops.temporal_conv import (split_bf16,
+                                                    temporal_conv_torch)
+from protoasnet_tpu_torch.ops.temporal_conv_cuda import (staging_aligned,
+                                                         taps_resident,
+                                                         temporal_conv_cuda,
+                                                         tile_rows)
 
 pytestmark = pytest.mark.cuda
 
@@ -259,11 +263,21 @@ def test_image_xprotonet_head_goes_through_the_kernel(dev):
     torch.testing.assert_close(logits, logits_p, rtol=1e-5, atol=1e-5)
 
 
-# (b, t, s, c, o) for temporal_conv: tiny; the stem's C=45 -> 64; T=1 with
-# S off the 64-position tile, C off the 32-channel chunk and O off the
-# 64-output tile; C = O = 1; layer1's C=144 -> 64 at S=130
+# (b, t, s, c, o) for temporal_conv: tiny; the stem's C=45 -> 64 (rows of
+# 90 / 180 bytes: element-wise staging); T=1 with S off the position tile,
+# C off the channel chunk and O off the 64-output tile; C = O = 1; layer1's
+# C=144 -> 64 at S=130 (288 / 576-byte rows: cp.async staging); layer3's
+# 576 -> 256 at S=20 (four output tiles). Then 136 blocks of 64 positions
+# (the wide tile, on a card of up to 136 SMs, ``WIDE``): taps resident
+# (C=48, 45, and 144 in bf16) and, at C=576 (and 144 in fp32), in chunks
 TEMPORAL_SHAPES = [(2, 4, 16, 8, 8), (2, 5, 100, 45, 64), (3, 1, 70, 33, 65),
-                   (1, 2, 3, 1, 1), (2, 3, 130, 144, 64)]
+                   (1, 2, 3, 1, 1), (2, 3, 130, 144, 64),
+                   (2, 3, 20, 576, 256), (8, 3, 1088, 48, 64),
+                   (8, 3, 1085, 45, 64), (8, 2, 1088, 144, 64),
+                   (8, 2, 1088, 576, 64)]
+WIDE = {(8, 3, 1088, 48, 64): (True, True), (8, 3, 1085, 45, 64): (True, True),
+        (8, 2, 1088, 144, 64): (True, False),
+        (8, 2, 1088, 576, 64): (False, False)}  # resident in (bf16, fp32)
 # (b, t, h, w, c, cm, co) for fused_c2p1d: the JAX script's small shape;
 # T=1 on a 5x7 image; W > 64 (two column tiles), Cm and Co off the tiles;
 # Cm=300 and 576 (fewer positions per block); layer1's block at B=1, T=4
@@ -322,8 +336,71 @@ def test_temporal_dispatcher_launches_the_kernel(dev):
     ref = temporal_conv_torch(x.double(), k.double())
     assert max_rel_err(y5.reshape(2, 3, 20, 5), ref)[1] <= 1e-5
     xb = x.bfloat16()
+    assert split_bf16(k)[1].any()  # the kernel runs the k_lo product
     assert max_rel_err(temporal_conv_cuda(xb, k),
                        temporal_conv_torch(xb, k))[1] <= 1e-2
+
+
+def _hold_temporal(x, k):
+    """The kernel against float64 (fp32 x) or the plain version on the same
+    inputs (bf16 x), at ``TOL``."""
+    before = temporal_conv_cuda.launches
+    y = temporal_conv_cuda(x, k)
+    torch.cuda.synchronize()
+    assert temporal_conv_cuda.launches == before + 1
+    ref = (temporal_conv_torch(x.double(), k.double())
+           if x.dtype == torch.float32 else temporal_conv_torch(x, k))
+    _, rel = max_rel_err(y, ref)
+    assert rel <= TOL[x.dtype], rel
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 3, 130, 144, 64), (2, 5, 100, 45, 64),
+                                   (8, 2, 1088, 144, 64)])
+def test_temporal_kernel_on_a_view_off_16_bytes(dev, shape, dtype):
+    """A contiguous x whose data_ptr() is one element past a 16-byte
+    boundary: the wrapper must take the element-wise staging path."""
+    x, k = _temporal_data(shape, dev, dtype)
+    buf = torch.empty(x.numel() + 1, dtype=dtype, device=dev)
+    xv = buf[1:].view(x.shape)
+    xv.copy_(x)
+    assert xv.is_contiguous() and xv.data_ptr() % 16 != 0
+    assert not staging_aligned(shape[3], shape[4], xv.element_size(),
+                               xv.data_ptr())
+    _hold_temporal(xv, k)
+
+
+@pytest.mark.parametrize("shape", [(2, 3, 20, 576, 256), (2, 5, 100, 45, 64),
+                                   (2, 3, 130, 144, 64), (8, 2, 1088, 144, 64),
+                                   (8, 2, 1088, 576, 64)])
+def test_temporal_kernel_fp32_taps_with_bf16_x(dev, shape):
+    """fp32 taps with bf16 x: k_hi + k_lo, two bf16 products, against the
+    plain version's fp32 taps."""
+    x, k = _temporal_data(shape, dev, torch.float32)
+    assert split_bf16(k)[1].any()
+    _hold_temporal(x.bfloat16(), k)
+
+
+def test_temporal_tile_rows(dev):
+    """64 positions per block unless that leaves SMs without a block."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert tile_rows(8, 64 * sms, 64) == 64
+    assert tile_rows(8, 64 * (sms // 8) - 64, 64) == 32
+    assert tile_rows(8, 3136, 64) == 64  # layer1: 392 blocks
+
+
+@pytest.mark.parametrize("shape", list(WIDE))
+def test_temporal_taps_resident(dev, shape):
+    """The taps stay in shared memory where they fit beside two x frames
+    (the wide shapes above; at layer1's C=144 in bf16, not in fp32's two
+    arrays), never at the narrow tile, and k_lo's second array counts."""
+    b, _, s, c, o = shape
+    assert tile_rows(b, s, o) == 64
+    bf16, fp32 = WIDE[shape]
+    assert taps_resident(torch.bfloat16, False, b, s, c, o) is bf16
+    assert taps_resident(torch.float32, True, b, s, c, o) is fp32
+    assert taps_resident(torch.bfloat16, True, b, s, 144, o)  # 163 KB
+    assert not taps_resident(torch.bfloat16, False, 1, 20, c, o)
 
 
 def _fused_data(shape, dev, dtype, seed=14):

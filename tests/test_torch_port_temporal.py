@@ -7,7 +7,8 @@ The same seeded numpy inputs go through
 argument, so ``pl.pallas_call`` is patched to run in interpret mode for the
 test) and ``lax.conv_general_dilated``, at fp32 rtol 1e-5, atol 1e-6. Also
 an unaligned C, T=1, the stem's C=45, bf16, the kernel's wrapper on CPU
-tensors and the entry point's FLOP count. The CUDA kernel itself runs only
+tensors and the entry point's shapes, FLOP and byte counts, bounds and
+``--device cpu`` runs. The CUDA kernel itself runs only
 on the card
 (tests/test_torch_port_cuda.py); on the CPU its wrapper takes the plain
 version because the tensors lie on the CPU.
@@ -24,6 +25,9 @@ import torch
 from jax import lax
 from jax.experimental import pallas as pl
 
+from protoasnet_tpu_torch.experiments import temporal_conv as entry
+from protoasnet_tpu_torch.experiments.common import bound_ms
+from protoasnet_tpu_torch.experiments.fused_c2p1d import BLOCKS
 from protoasnet_tpu_torch.experiments.temporal_conv import flops
 from protoasnet_tpu_torch.ops.temporal_conv import temporal_conv_torch
 from protoasnet_tpu_torch.ops.temporal_conv_cuda import temporal_conv_cuda
@@ -147,3 +151,57 @@ def test_flops_count_taps_inside_the_clip(t):
     b, s, c, o = 2, 7, 3, 5
     taps = sum(0 <= tt + dt - 1 < t for tt in range(t) for dt in range(3))
     assert flops(b, t, s, c, o) == 2 * b * s * c * o * taps
+
+
+def test_shapes_are_the_trunks_temporal_convs():
+    """The layer shapes are the blocks' Cm -> Co temporal convs; ``--shape``
+    takes the four names and defaults to layer1."""
+    assert entry.SHAPES["stem"] == (32, 56, 56, 45, 64)
+    for name, (t, h, w, _, cm, co) in BLOCKS.items():
+        assert entry.SHAPES[name] == (t, h, w, cm, co)
+    assert list(entry.SHAPES) == ["stem", "layer1", "layer2", "layer3"]
+    assert entry._parse([]).shape == "layer1"
+    assert entry._parse(["--shape", "layer3", "--bf16"]).shape == "layer3"
+    with pytest.raises(SystemExit):
+        entry._parse(["--shape", "layer4"])
+    assert entry.dims("layer2", "cuda") == (8, 16, 28, 28, 288, 128)
+    assert entry.dims("layer3", "cpu") == (2, 4, 4, 4, 576, 256)
+
+
+# (shape, GFLOP of the taps inside the clip, bf16 bytes of x + k + y) at B=8
+TRUNK = [("stem", 13_583_646_720, 175_031_168),
+         ("layer1", 43_467_669_504, 334_026_752),
+         ("layer2", 21_271_412_736, 83_714_048),
+         ("layer3", 10_173_284_352, 21_757_952)]
+
+
+@pytest.mark.parametrize("name, nflop, nbytes_bf16", TRUNK)
+def test_flops_and_bytes_at_the_trunk_shapes(name, nflop, nbytes_bf16):
+    b, t, h, w, c, o = entry.dims(name, "cuda")
+    assert flops(b, t, h * w, c, o) == nflop
+    assert entry.nbytes(b, t, h * w, c, o, 2) == nbytes_bf16
+    assert entry.nbytes(b, t, h * w, c, o, 4) == 2 * nbytes_bf16
+
+
+def test_bounds_at_layer1():
+    """bf16 is bound by bytes; fp32 by operations at the 3xTF32 rate (a
+    third of 495 TFLOP/s), 0.263 ms against 0.199 ms of bytes."""
+    b, t, h, w, c, o = entry.dims("layer1", "cuda")
+    s = h * w
+    ms, by = bound_ms(entry.nbytes(b, t, s, c, o, 2), flops(b, t, s, c, o),
+                      torch.bfloat16)
+    assert by == "bytes" and ms == pytest.approx(0.09971, abs=1e-5)
+    ms, by = bound_ms(entry.nbytes(b, t, s, c, o, 4), flops(b, t, s, c, o),
+                      torch.float32)
+    assert by == "operations" and ms == pytest.approx(0.26344, abs=1e-5)
+
+
+@pytest.mark.parametrize("name", list(entry.SHAPES))
+def test_entry_point_runs_each_shape_on_cpu(name):
+    """``--device cpu --shape s``: the plain version at the shape's widths
+    on a small clip, against ``F.conv3d`` in float64."""
+    res = entry.main(["--device", "cpu", "--shape", name])
+    t, _, _, c, o = entry.SHAPES[name]
+    assert res["shape_name"] == name and res["device"] == "cpu"
+    assert res["shape"] == dict(b=2, t=min(t, 4), s=16, c=c, o=o)
+    assert res["rel_err"] <= res["tol"] and "ms" not in res
