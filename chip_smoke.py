@@ -36,8 +36,8 @@ raises and the script exits non-zero without printing a result):
 6. the R(2+1)D kernels' path: ``main`` of both experiment entry points
    (``protoasnet_tpu_torch.experiments.temporal_conv`` at the trunk's four
    stride-1 temporal-conv shapes, stem, layer1, layer2 and layer3, in fp32
-   and bf16; ``...fused_c2p1d`` at layer1 in bf16 and fp32 and at
-   layer2/layer3 in bf16), each holding its kernel against the float64
+   and bf16; ``...fused_c2p1d`` at layer1, layer2 and layer3 in bf16 and
+   fp32, with its tiling), each holding its kernel against the float64
    (fp32) or bf16 plain version within the limits of phase 3 and timing
    kernel, plain version, cuDNN and the bound. Both launch counts are set
    to 0 just before and read just after; each kernel must have launched.
@@ -368,8 +368,7 @@ def phase_flagship_blocks(dev, cfg):
     from protoasnet_tpu_torch.models.builder import build_model
     from protoasnet_tpu_torch.ops.fused_c2p1d import (fold_conv2plus1d,
                                                       fused_c2p1d_torch)
-    from protoasnet_tpu_torch.ops.fused_c2p1d_cuda import (fused_c2p1d_cuda,
-                                                           tile_positions)
+    from protoasnet_tpu_torch.ops.fused_c2p1d_cuda import fused_c2p1d_cuda
 
     model = build_model(dict(cfg["model"], dtype="float32"), device=dev,
                         seed=0)
@@ -400,9 +399,7 @@ def phase_flagship_blocks(dev, cfg):
                                  fused_c2p1d_cuda(x, *folded), ref,
                                  TOL[torch.float32])
         _log_both("3 blocks", f"{name} ({c}->{cm}->{co} at {t}x{h}x{w}, "
-                  f"B={BATCH}; {tile_positions(torch.float32, cm)}/"
-                  f"{tile_positions(torch.bfloat16, cm)} positions per "
-                  f"block in fp32/bf16)", res)
+                  f"B={BATCH})", res)
         log(f"[3 blocks] {name}: fp32 kernel vs the module's eval forward "
             f"(cuDNN, TF32 off) max abs err {err_m:.3e} ({rel_m:.3e} of "
             f"max |ref|)")
@@ -669,8 +666,9 @@ EXPERIMENTS = (
       for shape in ("stem", "layer2", "layer3") for dt in ("fp32", "bf16")),
     ("fused bf16 layer1", "fused_c2p1d", []),
     ("fused fp32 layer1", "fused_c2p1d", ["--fp32"]),
-    ("fused bf16 layer2", "fused_c2p1d", ["--block", "layer2"]),
-    ("fused bf16 layer3", "fused_c2p1d", ["--block", "layer3"]),
+    *((f"fused {dt} {block}", "fused_c2p1d",
+       ["--block", block] + (["--fp32"] if dt == "fp32" else []))
+      for block in ("layer2", "layer3") for dt in ("bf16", "fp32")),
 )
 RECORDS = {"temporal_conv_cuda": "temporal fp32 layer1",
            "fused_c2p1d_cuda": "fused bf16 layer1"}
@@ -705,9 +703,13 @@ def phase_experiments():
         raise AssertionError(f"a kernel of the experiments' path never "
                              f"launched: {launches}")
     for label, r in runs.items():
-        tile = (f", {r['rows_per_block']} positions per block, taps "
-                f"{'resident' if r['taps_resident'] else 'in chunks'}"
-                if "rows_per_block" in r else "")
+        if "rows_per_block" in r:
+            tile = (f", {r['rows_per_block']} positions per block, taps "
+                    f"{'resident' if r['taps_resident'] else 'in chunks'}")
+        else:
+            tile = (f", {r['tile'][0]}x{r['tile'][1]} positions per block, "
+                    f"Cm in {r['splits']} slice(s) of {r['mid_per_block']}, "
+                    f"{r['blocks']} blocks")
         log(f"[6 experiments] {label}: kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, cuDNN {r['library_ms']:.4f} ms, bound "
             f"{r['bound_ms']:.4f} ms ({r['bound_by']}), {r['gflop']:.1f} "

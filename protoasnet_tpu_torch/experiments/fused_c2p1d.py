@@ -17,7 +17,9 @@ version on the same bf16 inputs (fp32 sums, the same bf16 rounding of mid)
 within 1e-2; past that it raises. Then kernel, plain version and the
 unfused cuDNN sequence conv3d -> affine -> ReLU -> cast -> conv3d on
 ``channels_last_3d`` tensors (TF32 off) are timed with CUDA events and
-printed with TFLOP/s beside the H100's bound. FLOPs count the taps that
+printed with TFLOP/s beside the H100's bound, and the kernel's tiling
+(``ops/fused_c2p1d_cuda.py::tiling``: positions per block, the split of the
+mid channels across blocks, blocks). FLOPs count the taps that
 land inside the clip, 2*B*T*C*Cm*(3H-2)*(3W-2) + 2*B*H*W*Cm*Co*(3T-2): the
 SAME zero padding needs no multiply. ``--device cpu`` runs the plain
 version only, at the JAX script's small size (B=2, T=6, 8x8, 16 -> 24 ->
@@ -38,7 +40,8 @@ from protoasnet_tpu_torch.experiments.common import (BATCH, TOL, bound_ms,
                                                      max_rel_err, no_tf32,
                                                      time_ms)
 from protoasnet_tpu_torch.ops.fused_c2p1d import fused_c2p1d_torch
-from protoasnet_tpu_torch.ops.fused_c2p1d_cuda import fused_c2p1d_cuda
+from protoasnet_tpu_torch.ops.fused_c2p1d_cuda import (device_tiling,
+                                                       fused_c2p1d_cuda)
 from protoasnet_tpu_torch.utils.device import resolve_device
 
 __all__ = ["main", "unfused_reference", "flops", "BLOCKS", "SMALL"]
@@ -150,15 +153,18 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
         plain_ms = time_ms(lambda: fused_c2p1d_torch(*args5))
         library_ms = time_ms(lambda: library(x))
     bnd, by = bound_ms(nbytes, nflop, dtype)
+    tl = device_tiling(x, cm, dtype == torch.float32)
     res.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                bound_ms=bnd, bound_by=by, library_max_abs_err=lib_err,
-               kind=torch.cuda.get_device_name(dev))
+               tile=(tl.th, tl.tw), splits=tl.splits, mid_per_block=tl.slice,
+               blocks=tl.blocks, kind=torch.cuda.get_device_name(dev))
     for name, t_ms in (("kernel", ms), ("plain", plain_ms),
                        ("cudnn 2-conv", library_ms), ("bound", bnd)):
         print(f"{name:13s} fwd {t_ms:8.4f} ms ({nflop / t_ms / 1e9:7.1f} "
               f"TF/s)", flush=True)
-    print(f"bound by {by}; cudnn sequence max abs err {lib_err:.4g}",
-          flush=True)
+    print(f"bound by {by}; {tl.th}x{tl.tw} positions per block, Cm in "
+          f"{tl.splits} slice(s) of {tl.slice}, {tl.blocks} blocks; cudnn "
+          f"sequence max abs err {lib_err:.4g}", flush=True)
     return res
 
 

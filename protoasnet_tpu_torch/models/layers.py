@@ -141,9 +141,15 @@ class PrototypeReadout(nn.Module):
         self.Dense_0 = nn.Linear(num_prototypes, num_classes, bias=False)
 
     def reset_incorrect_connection(self, incorrect_strength: float = 0.0):
+        """The class-connection init; a zero kernel when P % K != 0, as the
+        JAX init writes for pruned models (their weights come from a
+        checkpoint)."""
         p, k = self.Dense_0.in_features, self.Dense_0.out_features
-        kernel = incorrect_connection_kernel(p, k, incorrect_strength)
         with torch.no_grad():
+            if p % k != 0:
+                self.Dense_0.weight.zero_()
+                return
+            kernel = incorrect_connection_kernel(p, k, incorrect_strength)
             self.Dense_0.weight.copy_(torch.from_numpy(kernel.T))
 
     def forward(self, sim):

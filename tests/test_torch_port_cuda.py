@@ -20,8 +20,12 @@ from protoasnet_tpu_torch.experiments.common import (TOL, max_rel_err,
 from protoasnet_tpu_torch.experiments.fused_c2p1d import unfused_reference
 from protoasnet_tpu_torch.ops.fused_c2p1d import (fold_conv2plus1d,
                                                   fused_c2p1d_torch)
-from protoasnet_tpu_torch.ops.fused_c2p1d_cuda import (fused_c2p1d_cuda,
-                                                       tile_positions)
+from protoasnet_tpu_torch.ops.fused_c2p1d_cuda import (_lib as fused_lib,
+                                                       device_tiling,
+                                                       fused_c2p1d_cuda,
+                                                       smem_bytes,
+                                                       staging_aligned as
+                                                       fused_aligned)
 from protoasnet_tpu_torch.ops.l2_min import l2_min_torch
 from protoasnet_tpu_torch.ops.l2_min_cuda import l2_min_cuda
 from protoasnet_tpu_torch.ops.roi_cosine import roi_cosine_torch
@@ -279,11 +283,15 @@ WIDE = {(8, 3, 1088, 48, 64): (True, True), (8, 3, 1085, 45, 64): (True, True),
         (8, 2, 1088, 144, 64): (True, False),
         (8, 2, 1088, 576, 64): (False, False)}  # resident in (bf16, fp32)
 # (b, t, h, w, c, cm, co) for fused_c2p1d: the JAX script's small shape;
-# T=1 on a 5x7 image; W > 64 (two column tiles), Cm and Co off the tiles;
-# Cm=300 and 576 (fewer positions per block); layer1's block at B=1, T=4
+# T=1 on a 5x7 image; W > 64 (several column tiles), Cm and Co off the
+# tiles; Cm=300 and 576 split across many blocks; layer1's block at B=1,
+# T=4; layer2's and layer3's blocks at B=1 and full T (Cm split in 3 / 5+);
+# Cm=200 split with a partial last slice, Co=48 (one partial output pass)
 FUSED_SHAPES = [(2, 6, 8, 8, 16, 24, 16), (1, 1, 5, 7, 3, 10, 4),
                 (2, 3, 9, 70, 5, 33, 65), (1, 3, 7, 7, 8, 300, 8),
-                (1, 2, 14, 14, 16, 576, 16), (1, 4, 56, 56, 64, 144, 64)]
+                (1, 2, 14, 14, 16, 576, 16), (1, 4, 56, 56, 64, 144, 64),
+                (1, 16, 28, 28, 128, 288, 128), (1, 8, 14, 14, 256, 576, 256),
+                (2, 3, 10, 12, 32, 200, 48)]
 
 
 def _temporal_data(shape, dev, dtype, seed=13):
@@ -444,10 +452,22 @@ def test_fused_kernel_pads_mid_with_zeros(dev):
 
 
 def test_fused_tile_positions(dev):
-    assert tile_positions(torch.float32, 144) == 64
-    assert tile_positions(torch.bfloat16, 576) == 32
-    assert tile_positions(torch.float32, 576) == 16
-    assert tile_positions(torch.float32, 100000) == 0
+    """The wrapper's tiling: its shared memory is the kernel's own count,
+    and every flagship block shape at B=8 fills the card's SMs."""
+    from protoasnet_tpu_torch.experiments.fused_c2p1d import BLOCKS
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for t, h, w, c, cm, co in BLOCKS.values():
+        for dtype, two in ((torch.bfloat16, False), (torch.bfloat16, True),
+                           (torch.float32, True)):
+            x = torch.empty((8, 1, h, w, c), dtype=dtype, device=dev)
+            tl = device_tiling(x, cm, two)
+            assert tl.blocks >= sms, tl
+            assert tl.smem == fused_lib().fused_c2p1d_smem_bytes(
+                int(dtype == torch.bfloat16), int(two), tl.th, tl.tw,
+                tl.slice)
+            assert tl.smem == smem_bytes(x.element_size(), two, tl.th, tl.tw,
+                                         tl.slice)
 
 
 def test_fused_kernel_refuses_bad_inputs(dev):
@@ -463,12 +483,13 @@ def test_fused_kernel_refuses_bad_inputs(dev):
         fused_c2p1d_cuda(x, ks, scale[:4], shift, kt)
     with pytest.raises(ValueError, match="scale on cpu"):
         fused_c2p1d_cuda(x, ks, scale.cpu(), shift, kt)
-    wide = 100000
-    with pytest.raises(ValueError, match="do not fit"):
-        fused_c2p1d_cuda(x[..., :1], torch.zeros((3, 3, 1, wide), device=dev),
-                         torch.ones(wide, device=dev),
-                         torch.zeros(wide, device=dev),
-                         torch.zeros((3, wide, 2), device=dev))
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fused_c2p1d_cuda(x.half(), ks, scale, shift, kt)
+    # a Cm far past one block's shared memory is split across blocks
+    args = _fused_data((1, 2, 4, 4, 1, 20000, 2), dev, torch.float32)
+    out = fused_c2p1d_cuda(*args)
+    ref = fused_c2p1d_torch(*(a.double() for a in args))
+    assert max_rel_err(out, ref)[1] <= TOL[torch.float32]
 
 
 def test_fused_dispatcher_and_fold_on_the_card(dev):
@@ -491,3 +512,43 @@ def test_fused_dispatcher_and_fold_on_the_card(dev):
         ref = module(x.permute(0, 4, 1, 2, 3)).permute(0, 2, 3, 4, 1)
     assert fused_c2p1d_cuda.launches == before + 1
     assert max_rel_err(out, ref)[1] <= 1e-5
+
+
+def _hold_fused(args):
+    """The kernel against float64 (fp32 x) or the plain version on the same
+    inputs (bf16 x), at ``TOL``."""
+    x = args[0]
+    before = fused_c2p1d_cuda.launches
+    out = fused_c2p1d_cuda(*args)
+    torch.cuda.synchronize()
+    assert fused_c2p1d_cuda.launches == before + 1
+    ref = (fused_c2p1d_torch(*(a.double() for a in args))
+           if x.dtype == torch.float32 else fused_c2p1d_torch(*args))
+    _, rel = max_rel_err(out, ref)
+    assert rel <= TOL[x.dtype], rel
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(1, 4, 56, 56, 64, 144, 64),
+                                   (2, 3, 9, 70, 16, 33, 64)])
+def test_fused_kernel_on_a_view_off_16_bytes(dev, shape, dtype):
+    """A contiguous x whose data_ptr() is one element past a 16-byte
+    boundary: the wrapper must take the element-wise staging path."""
+    x, *rest = _fused_data(shape, dev, dtype)
+    buf = torch.empty(x.numel() + 1, dtype=dtype, device=dev)
+    xv = buf[1:].view(x.shape)
+    xv.copy_(x)
+    assert xv.is_contiguous() and xv.data_ptr() % 16 != 0
+    assert not fused_aligned(xv.element_size(), *shape[4:], xv.data_ptr())
+    _hold_fused((xv, *rest))
+
+
+@pytest.mark.parametrize("shape", [(1, 4, 56, 56, 64, 144, 64),
+                                   (1, 8, 14, 14, 256, 576, 256),
+                                   (1, 1, 5, 7, 3, 10, 4)])
+def test_fused_kernel_fp32_taps_with_bf16_x(dev, shape):
+    """fp32 taps with bf16 x: k_hi + k_lo in both GEMMs, against the plain
+    version's fp32 taps."""
+    x, ks, scale, shift, kt = _fused_data(shape, dev, torch.float32)
+    assert split_bf16(ks)[1].any() and split_bf16(kt)[1].any()
+    _hold_fused((x.bfloat16(), ks, scale, shift, kt))
