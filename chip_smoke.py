@@ -12,11 +12,13 @@ raises and the script exits non-zero without printing a result):
    per source, all started together) and print ptxas' registers, shared
    memory and spills of each kernel instantiation;
 2. hold each kernel against its plain PyTorch version on the card and time
-   kernel, plain version, their bound and a library reference:
-   ``roi_cosine_cuda`` at the video head shape (N=128, S=8*14*14, P=40,
-   D=256) and at the image head shape (N=128, S=7*7, P=40, D=512), fp32
-   and bf16 inputs; ``l2_min_cuda`` at ProtoPNet's head shape (N=128 and
-   8, S=7*7, P=30, D=512) against a float64 plain version;
+   the wrapper call, the kernel alone on the device (profiler), the plain
+   version, their bound and a library reference: ``roi_cosine_cuda`` at
+   the video head shape (N=128, S=8*14*14, P=40, D=256) and at the image
+   head shape (N=128, S=7*7, P=40, D=512), fp32 and bf16 inputs, beside
+   ``torch.bmm`` of the roi product in the same dtype; ``l2_min_cuda`` at
+   ProtoPNet's head shape (N=128 and 8, S=7*7, P=30, D=512) beside
+   ``torch.cdist``; both against a float64 plain version;
 3. build each model at full width with seeded random weights; at fp32
    with TF32 off hold the kernel-head outputs against the plain-head
    outputs on the card, and the card's logits against the same model on
@@ -238,20 +240,26 @@ def phase_head(dev, shape, label):
             times[which].append(time_ms(lambda: fn(occ, feat, protos), 20))
         ms = min(times["kernel"])
         plain_ms = min(times["plain"])
-        occ2, feat2 = occ.float(), feat.float()
-        bmm_ms = time_ms(lambda: torch.bmm(occ2.transpose(1, 2), feat2), 20)
+        # the yardstick in the kernel's own input dtype
+        bmm_ms = time_ms(lambda: torch.bmm(occ.transpose(1, 2), feat), 20)
+        dev_ms = kernel_device_ms(lambda: roi_cosine_cuda(occ, feat, protos),
+                                  "roi_cosine_kernel")
         bound_ms, bound_by = head_bound_ms(n, s, p, d, dtype)
         log(f"[2 head {label}] {str(dtype)[6:]} N={n} S={s} P={p} D={d}: "
             f"roi max abs err {err_roi:.3e} (rel {rel_roi:.3e}), sim max abs "
-            f"err {err_sim:.3e} (rel {rel_sim:.3e}); kernel {ms:.4f} ms, "
-            f"plain {plain_ms:.4f} ms, bmm of roi alone {bmm_ms:.4f} ms, "
-            f"bound {bound_ms:.4f} ms ({bound_by}), kernel runs "
-            f"{times['kernel']} plain runs {times['plain']}; at N=8 roi "
-            f"max abs err {e8[0]:.3e}, sim {e8[2]:.3e}")
+            f"err {err_sim:.3e} (rel {rel_sim:.3e}); wrapper call {ms:.4f} "
+            f"ms, kernel alone on the device "
+            f"{'not measured' if dev_ms is None else f'{dev_ms:.4f} ms'} "
+            f"(profiler), plain {plain_ms:.4f} ms, {str(dtype)[6:]} bmm of "
+            f"roi alone {bmm_ms:.4f} ms, bound {bound_ms:.4f} ms "
+            f"({bound_by}), kernel runs {times['kernel']} plain runs "
+            f"{times['plain']}; at N=8 roi max abs err {e8[0]:.3e}, sim "
+            f"{e8[2]:.3e}")
         if dtype == torch.bfloat16:
             record = {"max_abs_err": max(err_roi, err_sim), "ms": ms,
                       "plain_ms": plain_ms, "bound_ms": bound_ms,
-                      "bound_by": bound_by}
+                      "bound_by": bound_by, "library_ms": bmm_ms,
+                      "kernel_device_ms": dev_ms}
     return record
 
 
@@ -771,7 +779,7 @@ def main() -> int:
     print(json.dumps({"kernels": [
         dict(name="roi_cosine_cuda", route="cuda", source=roi_mod.SOURCE,
              replaces=roi_mod.REPLACES,
-             launches=launches["roi_cosine_cuda"], library_ms=None, **head),
+             launches=launches["roi_cosine_cuda"], **head),
         dict(name="l2_min_cuda", route="cuda", source=l2_mod.SOURCE,
              replaces=l2_mod.REPLACES, launches=launches["l2_min_cuda"],
              **l2),

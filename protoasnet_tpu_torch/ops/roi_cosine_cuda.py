@@ -5,30 +5,85 @@
 what bounds it and how it is laid out. The source is compiled for
 ``sm_90a`` at first use (``ops/cuda_build.py``).
 
-On a CUDA tensor the wrapper launches the kernel or raises; on a CPU tensor
-it runs the plain version (``ops/roi_cosine.py::roi_cosine_torch``). It
-counts its launches in ``roi_cosine_cuda.launches``. Forward only: the
-gradient (``pallas_roi._bwd``) comes with the training slice, so an input
-that requires grad is refused.
+On a CUDA tensor the wrapper launches the kernel, once per call (the
+prototype norms are computed inside it), or raises; on a CPU tensor it runs
+the plain version (``ops/roi_cosine.py::roi_cosine_torch``). It counts its
+launches in ``roi_cosine_cuda.launches``. Forward only: the gradient
+(``pallas_roi._bwd``) comes with the training slice, so an input that
+requires grad is refused.
+
+``plan`` gives the launch the kernel takes (cluster size, blocks, shared
+memory); it mirrors the source's constants, and a card test compares its
+shared memory with the library's ``roi_cosine_smem_bytes``;
+``active_clusters`` asks the card how many clusters it holds at once.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
 from protoasnet_tpu_torch.ops.cuda_build import load_library
-from protoasnet_tpu_torch.ops.roi_cosine import _EPS, roi_cosine_torch
+from protoasnet_tpu_torch.ops.roi_cosine import roi_cosine_torch
 
-__all__ = ["roi_cosine_cuda", "SOURCE", "REPLACES"]
+__all__ = ["roi_cosine_cuda", "plan", "staging_aligned", "smem_bytes",
+           "active_clusters", "SOURCE", "REPLACES"]
 
 SOURCE = "protoasnet_tpu_torch/csrc/roi_cosine.cu"
 REPLACES = "protoasnet_tpu/ops/pallas_roi.py:58"
 _DTYPES = (torch.float32, torch.bfloat16)
-_MAX_GRID_Y = 65535  # samples per launch (grid.y)
+_INT_MAX = 2 ** 31 - 1
+_MAX_GRID_Y = 65535
+# the source's constants: d per block, prototypes per block, row pitches
+# (elements), ring stages, cluster size
+D_BLOCK, P_BLOCK = 128, 40
+_FEAT_PITCH, _OCC_PITCH = D_BLOCK + 8, P_BLOCK
+_MAX_STAGES, MAX_CLUSTER = 4, 8
+
+
+def smem_bytes(elem: int, s: int) -> int:
+    """Dynamic shared memory of one block: the ring of stages of 64 (bf16)
+    or 32 (fp32) positions, what S positions need, at least 1, at most
+    4."""
+    kc = 64 if elem == 2 else 32
+    stages = min(max(-(-s // kc), 1), _MAX_STAGES)
+    return stages * kc * (_FEAT_PITCH + _OCC_PITCH) * elem
+
+
+class Plan(NamedTuple):
+    cluster: int  # blocks per sample, one d tile of 128 each
+    blocks: int
+    smem: int  # dynamic shared memory per block, bytes
+
+
+def plan(n: int, s: int, p: int, d: int, elem: int) -> Plan:
+    """The launch for N samples of S positions, P prototypes and D
+    channels of ``elem``-byte inputs: grid (C*N, ceil(P/40)) in clusters of
+    C = ceil(D/128) (at most 8) blocks."""
+    c = min(MAX_CLUSTER, max(1, -(-d // D_BLOCK)))
+    return Plan(c, c * n * -(-p // P_BLOCK), smem_bytes(elem, s))
+
+
+def staging_aligned(elem: int, p: int, d: int, *ptrs: int) -> bool:
+    """Whether the kernel can stage through 16-byte ``cp.async``: rows of P
+    and of D elements of ``elem`` bytes and fp32 rows of D (the
+    prototypes) are 16-byte multiples and every pointer in ``ptrs`` (occ,
+    feat and the prototypes) starts on a 16-byte boundary."""
+    return (p * elem) % 16 == 0 and (d * elem) % 16 == 0 and d % 4 == 0 \
+        and all(q % 16 == 0 for q in ptrs)
+
+
+def active_clusters(elem: int, s: int, cluster: int) -> int:
+    """Clusters of ``cluster`` blocks the current device holds at once for
+    S positions of ``elem``-byte inputs (the CUDA occupancy query)."""
+    n = _lib().roi_cosine_active_clusters(int(elem == 2), s, cluster)
+    if n < 0:
+        raise RuntimeError("roi_cosine_active_clusters failed: "
+                           + _lib().roi_cosine_error_string(-n).decode())
+    return n
 
 
 def _lib() -> ctypes.CDLL:
@@ -36,8 +91,12 @@ def _lib() -> ctypes.CDLL:
     fn = lib.roi_cosine_forward
     if fn.argtypes is None:
         vp, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp, vp, i, vp, vp, vp, vp, i, i, i, i, vp]
+        fn.argtypes = [vp, vp, i, vp, vp, vp, i, i, i, i, i, i, vp]
         fn.restype = ctypes.c_int
+        lib.roi_cosine_smem_bytes.argtypes = [i, i]
+        lib.roi_cosine_smem_bytes.restype = ctypes.c_int
+        lib.roi_cosine_active_clusters.argtypes = [i, i, i]
+        lib.roi_cosine_active_clusters.restype = ctypes.c_int
         lib.roi_cosine_error_string.argtypes = [ctypes.c_int]
         lib.roi_cosine_error_string.restype = ctypes.c_char_p
     return lib
@@ -75,26 +134,27 @@ def roi_cosine_cuda(occ: torch.Tensor, feat: torch.Tensor,
     if math.prod(feat.shape[1:-1]) != s:
         raise ValueError(f"roi_cosine_cuda: occ has {s} positions, feat "
                          f"{math.prod(feat.shape[1:-1])}")
+    pl = plan(n, s, p, d, occ.element_size())
+    if max(pl.cluster * n, s, d) > _INT_MAX or -(-p // P_BLOCK) > _MAX_GRID_Y:
+        raise ValueError(f"roi_cosine_cuda: (N, S, P, D) = {(n, s, p, d)} "
+                         f"exceeds the kernel's grid")
     occ2 = occ.reshape(n, s, p).contiguous()
     feat2 = feat.reshape(n, s, d).contiguous()
-    if n > _MAX_GRID_Y:
-        raise ValueError(f"roi_cosine_cuda: batch {n} > {_MAX_GRID_Y}; "
-                         f"split the batch")
     roi = torch.empty((n, p, d), dtype=torch.float32, device=occ.device)
     sim = torch.empty((n, p), dtype=torch.float32, device=occ.device)
     if n == 0 or p == 0:
         return roi, sim
     protos = prototypes.detach().to(torch.float32).contiguous()
-    # computed outside the kernel, as pallas_roi._forward does
-    pnorm = torch.linalg.vector_norm(protos, dim=1).clamp_min(_EPS)
+    aligned = staging_aligned(occ2.element_size(), p, d, occ2.data_ptr(),
+                              feat2.data_ptr(), protos.data_ptr())
     lib = _lib()
     with torch.cuda.device(occ.device):
         stream = torch.cuda.current_stream(occ.device).cuda_stream
         err = lib.roi_cosine_forward(
             occ2.data_ptr(), feat2.data_ptr(),
             int(occ2.dtype == torch.bfloat16), protos.data_ptr(),
-            pnorm.data_ptr(), roi.data_ptr(), sim.data_ptr(), n, s, p, d,
-            stream)
+            roi.data_ptr(), sim.data_ptr(), int(aligned), n, s, p, d,
+            pl.cluster, stream)
     if err != 0:
         raise RuntimeError("roi_cosine_cuda launch failed: "
                            + lib.roi_cosine_error_string(err).decode())

@@ -26,6 +26,8 @@ from protoasnet_tpu_torch.ops.fused_c2p1d_cuda import (_lib as fused_lib,
                                                        smem_bytes,
                                                        staging_aligned as
                                                        fused_aligned)
+from protoasnet_tpu_torch.ops import l2_min_cuda as l2_mod
+from protoasnet_tpu_torch.ops import roi_cosine_cuda as roi_mod
 from protoasnet_tpu_torch.ops.l2_min import l2_min_torch
 from protoasnet_tpu_torch.ops.l2_min_cuda import l2_min_cuda
 from protoasnet_tpu_torch.ops.roi_cosine import roi_cosine_torch
@@ -39,16 +41,30 @@ from protoasnet_tpu_torch.ops.temporal_conv_cuda import (staging_aligned,
 
 pytestmark = pytest.mark.cuda
 
-# (n, s, p, d): tiny, ragged (S, P, D off the kernel's tiles), D > 256
-# (several d tiles in one block), the flagship head at batch 4 and the
-# image ProtoASNet head (7x7 positions, D=512) at batch 4
+# (n, s, p, d): tiny, ragged (S off the 64/32-position stage, P off the
+# 40-prototype block and its n8 tiles, D off the 128-wide tile), D=300 (a
+# cluster of 3), the flagship head at batch 4 and the image ProtoASNet head
+# (7x7 positions, D=512: a cluster of 4) at batch 4; then P=1, the pruned
+# P=6 with D=65 at N=133 (more blocks than SMs), P=45 (two prototype
+# blocks) at D=512, D=1100 (a cluster of 8 walking 9 d tiles), and the
+# card tests' model heads (P=8, D=64: 16-byte rows, a partial prototype
+# block) at S=32 and 4
 SHAPES = [(2, 18, 6, 16), (3, 35, 13, 40), (2, 70, 9, 300),
-          (4, 8 * 14 * 14, 40, 256), (4, 7 * 7, 40, 512)]
-# (n, s, p, d) for l2_min: ProtoPNet's head (S=49, P=30, D=512) at batch 8;
-# S off the 64-row tile (49, 70, 130), P off the 32-prototype tile (30, 7,
-# 33, 65), D = 1, 63 and 512, and N = 1
+          (4, 8 * 14 * 14, 40, 256), (4, 7 * 7, 40, 512), (1, 70, 1, 64),
+          (133, 33, 6, 65), (3, 100, 45, 512), (2, 130, 40, 1100),
+          (2, 32, 8, 64), (2, 4, 8, 64)]
+# (n, s, p, d) for l2_min: ProtoPNet's head (S=49, P=30, D=512: clusters
+# of 2 blocks of 256 d) at batch 8, 1 and 133 (more clusters than SMs); S
+# off the 56-position tile (49, 57, 60, 70, 130, 200: four tiles), P off
+# the 32-prototype block (30, 7, 33, 65), D = 1, 63, 65 and 100 (one block,
+# warps without d), 700 (a cluster of 3, the last block's range partial),
+# 1000 (of 4), 1500 (of 6) and 1700 (of 7), 2100 (of 5 blocks of 512 d:
+# each warp stages two 32-wide chunks) and 4000 (of 8 blocks of 512 d)
 L2_SHAPES = [(8, 49, 30, 512), (1, 49, 30, 512), (3, 70, 7, 63),
-             (2, 130, 33, 1), (2, 5, 65, 100), (1, 1, 1, 1)]
+             (2, 130, 33, 1), (2, 5, 65, 100), (1, 1, 1, 1),
+             (133, 49, 30, 512), (2, 200, 6, 1000), (1, 57, 32, 65),
+             (2, 49, 30, 700), (1, 9, 5, 1500), (1, 9, 5, 1700),
+             (2, 60, 30, 2100), (1, 20, 33, 4000)]
 
 
 @pytest.fixture
@@ -101,11 +117,88 @@ def test_channels_last_maps_and_strided_inputs(dev):
     torch.testing.assert_close(sim.double(), ref_sim, rtol=1e-5, atol=1e-6)
 
 
-def test_zero_occurrence_gives_half(dev):
-    occ, feat, protos = _data((2, 18, 6, 16), dev)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 18, 6, 16), (2, 49, 40, 512)])
+def test_zero_occurrence_gives_half(dev, shape, dtype):
+    occ, feat, protos = _data(shape, dev)
     occ[0] = 0.0
-    _, sim = roi_cosine_cuda(occ, feat, protos)
-    torch.testing.assert_close(sim[0].cpu(), torch.full((6,), 0.5))
+    _, sim = roi_cosine_cuda(occ.to(dtype), feat.to(dtype), protos)
+    torch.testing.assert_close(sim[0].cpu(), torch.full((shape[2],), 0.5))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 8 * 14 * 14, 40, 256),
+                                   (3, 7 * 7, 40, 512)])
+def test_kernel_on_views_off_16_bytes(dev, shape, dtype):
+    """Contiguous occ and feat whose data_ptr() is one element past a
+    16-byte boundary: the wrapper must take the element-wise staging
+    path."""
+    occ, feat, protos = _data(shape, dev)
+    views = []
+    for t in (occ, feat):
+        buf = torch.empty(t.numel() + 1, dtype=dtype, device=dev)
+        v = buf[1:].view(t.shape)
+        v.copy_(t)
+        assert v.is_contiguous() and v.data_ptr() % 16 != 0
+        views.append(v)
+    assert not roi_mod.staging_aligned(views[0].element_size(), shape[2],
+                                       shape[3], *(v.data_ptr()
+                                                   for v in views))
+    _check(*views, protos)
+
+
+def _device_kernels(fn):
+    """Names and counts of the kernels one call of ``fn`` runs on the
+    device (``torch.profiler``, as chip_smoke.py's kernel_device_ms)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key: e.count for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(4, 7 * 7, 40, 512), (2, 32, 8, 64)])
+def test_kernel_launches_one_kernel_per_call(dev, shape, dtype):
+    """The prototype norms are computed inside the launch: one call on
+    contiguous inputs runs one kernel on the device."""
+    occ, feat, protos = _data(shape, dev)
+    o, f = occ.to(dtype), feat.to(dtype)
+    kernels = _device_kernels(lambda: roi_cosine_cuda(o, f, protos))
+    assert list(kernels.values()) == [1] and \
+        "roi_cosine_kernel" in next(iter(kernels)), kernels
+
+
+@pytest.mark.parametrize("elem", [2, 4])
+@pytest.mark.parametrize("shape, waves", [((128, 8 * 14 * 14, 40, 256), 1),
+                                          ((128, 7 * 7, 40, 512), 2)])
+def test_roi_plan_waves_on_the_card(dev, shape, waves, elem):
+    """At the video head every cluster of the launch is resident at once;
+    at the image head (clusters of 4, of which the card places fewer than
+    four an SM) within two waves (the occupancy query, on this card)."""
+    n, s, p, d = shape
+    pl = roi_mod.plan(n, s, p, d, elem)
+    clusters = pl.blocks // pl.cluster
+    assert roi_mod.active_clusters(elem, s, pl.cluster) * waves >= clusters
+
+
+def test_l2_plan_is_one_wave_on_the_card(dev):
+    pl = l2_mod.plan(128, 30, 512)
+    assert l2_mod.active_clusters(pl.cluster) >= 128
+
+
+def test_roi_plan_matches_the_source(dev):
+    """The wrapper's shared-memory plan mirrors the source's ring."""
+    lib = roi_mod._lib()
+    for elem in (2, 4):
+        for s in (1, 49, 64, 65, 130, 1568):
+            assert roi_mod.smem_bytes(elem, s) == \
+                lib.roi_cosine_smem_bytes(int(elem == 2), s)
 
 
 def test_kernel_refuses_bad_inputs(dev):
@@ -206,6 +299,60 @@ def test_l2_min_kernel_empty_batch_and_nan(dev):
     assert not torch.isnan(dist[0]).any()
     torch.testing.assert_close(min_d, ref_min, rtol=0, atol=1e-4,
                                equal_nan=True)
+
+
+@pytest.mark.parametrize("where", ["x", "w"])
+def test_l2_min_kernel_nan_in_one_block_of_the_cluster(dev, where):
+    """At ProtoPNet's head (clusters of 2 blocks of 256 d, 32 d a warp): a
+    NaN in the second block's d range (its third warp's) reaches that
+    position's (or prototype's) distances and minima, and nothing else."""
+    x, w = _l2_data((2, 49, 30, 512), dev)
+    x, w = x.clone(), w.clone()
+    if where == "x":
+        x[1, 20, 256 + 2 * 32 + 3] = float("nan")
+    else:
+        w[4, 0, 0, 256 + 2 * 32 + 3] = float("nan")
+    dist, min_d = l2_min_cuda(x, w)
+    nan = torch.isnan(dist)
+    if where == "x":
+        assert nan[1, 20].all() and nan.sum() == 30
+        assert torch.isnan(min_d[1]).all() and not torch.isnan(min_d[0]).any()
+    else:
+        assert nan[:, :, 4].all() and nan.sum() == 2 * 49
+        assert torch.isnan(min_d[:, 4]).all() and torch.isnan(min_d).sum() == 2
+    assert torch.equal(min_d.nan_to_num(-1.0),
+                       dist.amin(1).nan_to_num(-1.0))
+    # as _l2_check: against float64 within 1e-5 of |x|^2 + |w|^2
+    ref_dist, _ = l2_min_torch(x.double(), w.double())
+    scale = float((x.double() ** 2).nansum(-1).max()
+                  + (w.double() ** 2).nansum(-1).max())
+    torch.testing.assert_close(dist.double(), ref_dist, rtol=0,
+                               atol=1e-5 * scale, equal_nan=True)
+
+
+def test_l2_min_kernel_on_a_view_off_16_bytes(dev):
+    """A contiguous x one element past a 16-byte boundary: element-wise
+    staging."""
+    x, w = _l2_data((8, 49, 30, 512), dev)
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=dev)
+    xv = buf[1:].view(x.shape)
+    xv.copy_(x)
+    assert xv.data_ptr() % 16 != 0
+    assert not l2_mod.staging_aligned(512, xv.data_ptr(), 0)
+    _l2_check(xv, w)
+
+
+def test_l2_min_kernel_launches_one_kernel_per_call(dev):
+    """|w|^2 is computed inside the launch: one call on contiguous fp32
+    inputs runs one kernel on the device."""
+    x, w = _l2_data((8, 49, 30, 512), dev)
+    kernels = _device_kernels(lambda: l2_min_cuda(x, w))
+    assert list(kernels.values()) == [1] and \
+        "l2_min_kernel" in next(iter(kernels)), kernels
+
+
+def test_l2_plan_matches_the_source(dev):
+    assert l2_mod.SMEM == l2_mod._lib().l2_min_smem_bytes()
 
 
 def test_l2_min_kernel_refuses_bad_inputs(dev):
