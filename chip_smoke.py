@@ -1,7 +1,8 @@
 """Chip smoke of the PyTorch/H100 port: the serving paths of the video
 flagship (Video ProtoASNet), the ProtoPNet baseline and the image
-ProtoASNet on one NVIDIA GPU, through the hand-written CUDA kernels, and
-the experiment entry points of the R(2+1)D block kernels.
+ProtoASNet on one NVIDIA GPU, through the hand-written CUDA kernels, the
+experiment entry points of the R(2+1)D block kernels, and the training
+path of the video flagship.
 
     python3 chip_smoke.py
 
@@ -42,7 +43,18 @@ raises and the script exits non-zero without printing a result):
    fp32, with its tiling), each holding its kernel against the float64
    (fp32) or bf16 plain version within the limits of phase 3 and timing
    kernel, plain version, cuDNN and the bound. Both launch counts are set
-   to 0 just before and read just after; each kernel must have launched.
+   to 0 just before and read just after; each kernel must have launched;
+7. the training path: ``protoasnet_tpu_torch.main.main`` on 12 synthetic
+   videos with the full-width bf16 flagship (train batch 5, two
+   micro-steps, val, a push without and one with replacement, val_push,
+   checkpoints), checking the run's files, finite losses and moved
+   weights, with ``roi_cosine_cuda``'s launch and backward counts set to 0
+   just before and read just after (both must be > 0); the head's gradient
+   through ``RoiCosineFunction`` at the train shape (N=5) against the
+   plain head's autograd (fp32 inputs vs float64, 1e-5 of max |ref|; bf16
+   vs bf16, 1e-2), timed against its bound; one fp32 train step on the
+   card against the same step on the CPU; clips/s of the bf16 micro-step
+   at batch 5 and its top device ops.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or of the JAX
@@ -727,6 +739,299 @@ def phase_experiments():
     return runs, launches
 
 
+# phase 7: the training path of the flagship, through the port's own main
+TRAIN_ARGS = ("--train.batch_size=5", "--train.accumulation_steps=2",
+              "--train.num_train_epochs=1", "--train.num_warm_epochs=0",
+              "--train.push_start=0", "--train.push_rate=1",
+              "--data.num_workers=1")
+TRAIN_HEAD = dict(n=5, s=8 * 14 * 14, p=40, d=256)  # the head at batch 5
+
+
+def _finite_losses(path: Path):
+    """Every loss value logged in metrics.jsonl, which must be finite."""
+    rows = [json.loads(line) for line in path.read_text().splitlines()]
+    losses = [v for r in rows for k, v in r.items() if "loss" in k]
+    if not losses or not all(np.isfinite(losses)):
+        raise AssertionError(f"{path}: losses {losses[:8]} ...")
+    modes = {k.split("/")[1] for r in rows for k in r
+             if k.startswith("epoch/")}
+    return len(losses), modes
+
+
+def phase_train(dev, cfg):
+    """The main training path: ``protoasnet_tpu_torch.main.main`` on 12
+    synthetic videos with the full-width bf16 flagship: one train epoch
+    (batch 5, two micro-steps, one Adam step), val, a non-replacing and a
+    replacing push, val_push and the checkpoints. The ROI kernel's launch
+    and backward counts are set to 0 just before and read just after."""
+    from protoasnet_tpu_torch.data.synthetic import make_synthetic_dataset
+    from protoasnet_tpu_torch.main import main as train_main
+    from protoasnet_tpu_torch.models.builder import build_model
+    from protoasnet_tpu_torch.ops.roi_cosine_cuda import roi_cosine_cuda
+
+    with tempfile.TemporaryDirectory() as tmp:
+        csv = make_synthetic_dataset(str(Path(tmp) / "data"),
+                                     num_videos=12, seed=3)
+        args = [f"--config_path={CONFIGS / VIDEO['config']}",
+                f"--save_dir={Path(tmp) / 'run'}",
+                f"--data.data_info_file={csv}", *TRAIN_ARGS]
+        roi_cosine_cuda.launches = 0
+        roi_cosine_cuda.backward_calls = 0
+        t0 = time.monotonic()
+        agent = train_main(args)
+        torch.cuda.synchronize()
+        seconds = time.monotonic() - t0
+        launches = roi_cosine_cuda.launches
+        backward_calls = roi_cosine_cuda.backward_calls
+        run = Path(agent.save_dir)
+        for name in ("last.ckpt", "metrics.jsonl",
+                     "img/epoch-0_pushed/prototypes_info.pickle"):
+            if not (run / name).exists():
+                raise AssertionError(f"training run lacks {name}")
+        n_losses, modes = _finite_losses(run / "metrics.jsonl")
+        if not {"train", "val", "val_push"} <= modes:
+            raise AssertionError(f"epoch rows of {sorted(modes)} only")
+        init = build_model(cfg["model"], device="cpu",
+                           seed=int(cfg["train"]["seed"])).state_dict()
+        moved = [k for k, v in agent.model.state_dict().items()
+                 if k.endswith("weight") and not torch.equal(v.cpu(),
+                                                             init[k])]
+        if "cnn_backbone.stem_spatial.weight" not in moved or \
+                "last_layer.Dense_0.weight" not in moved:
+            raise AssertionError(f"the optimiser did not step: {moved[:4]}")
+        renders = len(list((run / "img" / "epoch-0_pushed").glob("*.mp4")))
+    if not (launches and backward_calls):
+        raise AssertionError(f"training path: roi_cosine_cuda launches "
+                             f"{launches}, backward calls {backward_calls}")
+    log(f"[7 train] python -m protoasnet_tpu_torch.main {' '.join(args[2:])}"
+        f": train, val, push, push + replace, val_push, checkpoint in "
+        f"{seconds:.1f}s; {n_losses} finite loss values; {len(moved)} weight "
+        f"tensors moved by the optimiser; {renders} prototype clips "
+        f"rendered; roi_cosine_cuda launches {launches}, backward calls "
+        f"{backward_calls}")
+    return {"roi_cosine_cuda": launches, "backward_calls": backward_calls}
+
+
+def head_grad_bound_ms(n, s, p, d, dtype):
+    """Least time for the head's backward on an H100: occ, feat (``dtype``),
+    roi, g_roi (fp32), g_sim and the prototypes read once, g_occ, g_feat
+    (``dtype``) and g_protos written once at HBM rate, against the FLOPs of
+    the two products (2 * 2*N*S*P*D) at the card's peak for ``dtype``."""
+    b = torch.empty((), dtype=dtype).element_size()
+    nbytes = 2 * n * s * (p + d) * b + 2 * n * p * d * 4 + n * p * 4 \
+        + 2 * p * d * 4
+    return _bound(nbytes, 4 * n * s * p * d, dtype)
+
+
+def phase_head_grad(dev):
+    """The head's gradient through ``RoiCosineFunction`` at the train shape
+    (N=5, S=1568, P=40, D=256): fp32 inputs against a float64 plain-head
+    autograd (TF32 off, 1e-5 of max |ref|), bf16 inputs against the plain
+    head's autograd on the same bf16 inputs (1e-2); the backward timed
+    against its bound. Returns the bf16 record."""
+    from protoasnet_tpu_torch.ops.roi_cosine import (roi_cosine_backward,
+                                                     roi_cosine_torch)
+    from protoasnet_tpu_torch.ops.roi_cosine_cuda import roi_cosine_cuda
+
+    n, s, p, d = (TRAIN_HEAD[k] for k in "nspd")
+    g = torch.Generator(device=dev).manual_seed(5)
+    occ32 = torch.rand((n, s, p), device=dev, generator=g) * 0.05
+    feat32 = torch.randn((n, s, d), device=dev, generator=g)
+    protos = torch.rand((p, d), device=dev, generator=g)
+    g_roi = torch.randn((n, p, d), device=dev, generator=g) * 1e-3
+    g_sim = torch.randn((n, p), device=dev, generator=g)
+    record = None
+    for dtype, ref_dt, tol in ((torch.float32, torch.float64, 1e-5),
+                               (torch.bfloat16, torch.float32, 1e-2)):
+        leaves = [t.clone().requires_grad_(True)
+                  for t in (occ32.to(dtype), feat32.to(dtype), protos)]
+        ref_in = [t.detach().to(ref_dt).requires_grad_(True)
+                  for t in leaves]
+        with no_tf32():
+            roi, sim = roi_cosine_cuda(*leaves)
+            ((roi * g_roi).sum() + (sim * g_sim).sum()).backward()
+            r_roi, r_sim = roi_cosine_torch(*ref_in)
+            ((r_roi * g_roi.to(ref_dt)).sum()
+             + (r_sim * g_sim.to(ref_dt)).sum()).backward()
+        torch.cuda.synchronize()
+        errs = [max_rel_err(t.grad, r.grad) for t, r in zip(leaves, ref_in)]
+        dtypes = [t.grad.dtype for t in leaves]
+        if dtypes != [dtype, dtype, torch.float32] or \
+                max(r for _, r in errs) >= tol:
+            raise AssertionError(f"head gradient {dtype}: {dtypes}, errors "
+                                 f"{errs} (limit {tol:g} of max |ref|)")
+        # the backward alone: roi_cosine_backward on the saved residuals,
+        # the plain head's autograd backward on the same graph, and the two
+        # products as one torch.bmm each (the library's share of the work)
+        occ, feat = leaves[0].detach(), leaves[1].detach()
+        roi_d = roi.detach()
+
+        def bwd():
+            return roi_cosine_backward(occ, feat, protos, roi_d, g_roi,
+                                       g_sim)
+
+        p_in = [t.detach().requires_grad_(True) for t in leaves]
+        p_roi, p_sim = roi_cosine_torch(*p_in)
+
+        def plain_bwd():
+            return torch.autograd.grad((p_roi, p_sim), p_in, (g_roi, g_sim),
+                                       retain_graph=True)
+
+        g_tot = torch.randn((n, p, d), device=dev, generator=g).to(dtype)
+
+        def bmm_pair():
+            return (torch.bmm(occ, g_tot), torch.bmm(feat,
+                                                     g_tot.transpose(1, 2)))
+
+        with no_tf32():
+            times = {"plain": [], "kernel": []}
+            for which in ("plain", "kernel", "kernel", "plain"):
+                times[which].append(time_ms(
+                    plain_bwd if which == "plain" else bwd, 50))
+            lib_ms = time_ms(bmm_pair, 50)
+        bound_ms, bound_by = head_grad_bound_ms(n, s, p, d, dtype)
+        ms, plain_ms = min(times["kernel"]), min(times["plain"])
+        err = max(e for e, _ in errs)
+        log(f"[7 head grad] {str(dtype)[6:]} N={n} S={s} P={p} D={d}: "
+            f"g_occ/g_feat/g_protos max abs err "
+            f"{[f'{e:.3e}' for e, _ in errs]} "
+            f"({[f'{r:.3e}' for _, r in errs]} of max |ref|, limit {tol:g}, "
+            f"vs {str(ref_dt)[6:]} plain autograd); cotangents "
+            f"{[str(t)[6:] for t in dtypes]}; backward {ms:.4f} ms (runs "
+            f"{times['kernel']}), plain autograd backward {plain_ms:.4f} ms, "
+            f"two torch.bmm {lib_ms:.4f} ms, bound {bound_ms:.4f} ms "
+            f"({bound_by})")
+        if dtype == torch.bfloat16:
+            record = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                      "bound_ms": bound_ms, "bound_by": bound_by,
+                      "library_ms": lib_ms}
+    return record
+
+
+def phase_train_step_vs_cpu(dev, cfg):
+    """One fp32 train step (TF32 off, batch 2, full width, the flagship's
+    loss weights and lr) on the card against the same step of the port on
+    the CPU: same weights, batch and affine draw. Held: the loss terms
+    within 1e-4 relative (cuDNN and CPU convolutions in another order); the
+    prototypes' and readout's gradients within 1e-4 of their max; on each
+    device the update is Adam's first step, -lr * g / (|g| + eps) with g
+    the gradient plus the weight decay, within 2.5e-7 (the fp32 rounding of
+    the parameters, |p| < 2); and no update flips its sign."""
+    from protoasnet_tpu_torch.losses.bundle import LossBundle
+    from protoasnet_tpu_torch.models.builder import build_model
+    from protoasnet_tpu_torch.train.optim import (GROUPS, GradAccumulator,
+                                                  GroupAdam)
+    from protoasnet_tpu_torch.train.steps import make_xprotonet_steps
+
+    mcfg = dict(cfg["model"], dtype="float32")
+    lr, wd, eps = float(cfg["train"]["optimizer"]["lr_same"]), 1e-3, 1e-8
+    rng = np.random.default_rng(6)
+    x = torch.from_numpy(rng.normal(size=(2, *CLIP)).astype(np.float32))
+    target = torch.tensor([0, 2])
+    valid = torch.tensor([True, True])
+    names = ("prototype_vectors", "last_layer.Dense_0.weight")
+    out = []
+    for device in (torch.device("cpu"), dev):
+        model = build_model(mcfg, device=device, seed=0)
+        opt = GroupAdam(model, {gr: wd for gr in GROUPS})
+        step, _, _ = make_xprotonet_steps(
+            model, LossBundle(cfg["train"]["criterion"], num_classes=4,
+                              abstain_class=True),
+            opt, GradAccumulator(opt.params, 2))
+        with no_tf32():
+            m = step(x.to(device), target.to(device), valid.to(device),
+                     {gr: lr for gr in GROUPS}, affine=(11.0, 1.25))
+            if m["applied"]:
+                raise AssertionError("micro-step 1 of 2 applied")
+            params = dict(model.named_parameters())
+            grads = {k: params[k].grad.detach().double().cpu() for k in names}
+            before = {k: params[k].detach().double().cpu() for k in names}
+            opt.step({gr: lr for gr in GROUPS})
+        out.append(dict(
+            terms={k: float(v) for k, v in m.items()
+                   if k.startswith("loss")},
+            grads=grads, moved={k: params[k].detach().double().cpu()
+                                - before[k] for k in names},
+            adam={k: -lr * (grads[k] + wd * before[k])
+                  / ((grads[k] + wd * before[k]).abs() + eps)
+                  for k in names}))
+        del model, opt, step
+    cpu, card = out
+    term_rel = max(abs(card["terms"][k] - v) / max(abs(v), 1e-12)
+                   for k, v in cpu["terms"].items() if v)
+    grad_rel = max((card["grads"][k] - g).abs().max().item()
+                   / g.abs().max().item() for k, g in cpu["grads"].items())
+    adam_err = max((o["moved"][k] - o["adam"][k]).abs().max().item()
+                   for o in out for k in names)
+    upd_diff = max((card["moved"][k] - cpu["moved"][k]).abs().max().item()
+                   for k in names)
+    flips = sum(int(((card["moved"][k] * cpu["moved"][k]) < 0).sum())
+                for k in names)
+    log(f"[7 train step] fp32 batch 2 card vs CPU: loss terms max rel diff "
+        f"{term_rel:.3e} ({cpu['terms']['loss_all']:.6f} vs "
+        f"{card['terms']['loss_all']:.6f}); prototype_vectors/last_layer "
+        f"gradients max diff {grad_rel:.3e} of their max; updates vs Adam's "
+        f"first step {adam_err:.3e}; card vs CPU updates max abs diff "
+        f"{upd_diff:.3e} (lr {lr:g}), {flips} sign flips")
+    if term_rel > 1e-4 or grad_rel > 1e-4 or adam_err > 2.5e-7 or flips:
+        raise AssertionError("card train step differs from the CPU's")
+
+
+def phase_train_rate(dev, cfg):
+    """Clips/s of the bf16 flagship's train micro-step at batch 5 (the
+    pair forward, all terms, backward, one Adam step every 2), and the
+    top device ops of one profiled micro-step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from protoasnet_tpu_torch.losses.bundle import LossBundle
+    from protoasnet_tpu_torch.models.builder import build_model
+    from protoasnet_tpu_torch.train.optim import (GROUPS, GradAccumulator,
+                                                  GroupAdam)
+    from protoasnet_tpu_torch.train.steps import make_xprotonet_steps
+
+    model = build_model(cfg["model"], device=dev, seed=0)
+    opt = GroupAdam(model, {gr: 1e-3 for gr in GROUPS})
+    step, _, _ = make_xprotonet_steps(
+        model, LossBundle(cfg["train"]["criterion"], num_classes=4,
+                          abstain_class=True),
+        opt, GradAccumulator(opt.params, 2))
+    g = torch.Generator().manual_seed(8)
+    x = torch.randn((5, *CLIP), device=dev)
+    target = torch.tensor([0, 1, 2, 0, 1], device=dev)
+    valid = torch.ones(5, dtype=torch.bool, device=dev)
+    lrs = {gr: 1e-4 for gr in GROUPS}
+    for _ in range(4):
+        step(x, target, valid, lrs, generator=g)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    iters = 20
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        step(x, target, valid, lrs, generator=g)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / iters * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):
+            step(x, target, valid, lrs, generator=g)
+        torch.cuda.synchronize()
+    rows = [(getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0)) / 2e3, e.key,
+             e.count // 2) for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(r[0] for r in rows)
+    rows.sort(reverse=True)
+    log(f"[7 train rate] bf16 flagship train micro-step at batch 5 (pair "
+        f"forward, 7 terms, backward, Adam every 2): {ms:.2f} ms, "
+        f"{5 / ms * 1e3:.1f} clips/s, peak memory {peak:.2f} GiB; device "
+        f"busy {busy:.2f} ms per micro-step (profiler, 2 micro-steps)")
+    for dev_ms, name, count in rows[:12]:
+        log(f"[7 train rate]   {dev_ms:9.3f} ms {100 * dev_ms / busy:5.1f}% "
+            f"x{count:<4d} {name[:110]}")
+    return 5 / ms * 1e3
+
+
 def _record(r):
     return {k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                               "bound_by", "library_ms")}
@@ -775,11 +1080,18 @@ def main() -> int:
         phase_throughput(dev, spec, cfgs[spec["label"]])
     runs, r2p1d_launches = phase_experiments()
     launches.update(r2p1d_launches)
+    train_counts = phase_train(dev, cfgs[VIDEO["label"]])
+    launches["roi_cosine_cuda"] += train_counts["roi_cosine_cuda"]
+    backward = phase_head_grad(dev)
+    phase_train_step_vs_cpu(dev, cfgs[VIDEO["label"]])
+    phase_train_rate(dev, cfgs[VIDEO["label"]])
     print(card)
     print(json.dumps({"kernels": [
         dict(name="roi_cosine_cuda", route="cuda", source=roi_mod.SOURCE,
              replaces=roi_mod.REPLACES,
-             launches=launches["roi_cosine_cuda"], **head),
+             launches=launches["roi_cosine_cuda"], **head,
+             backward=dict(backward,
+                           calls=train_counts["backward_calls"])),
         dict(name="l2_min_cuda", route="cuda", source=l2_mod.SOURCE,
              replaces=l2_mod.REPLACES, launches=launches["l2_min_cuda"],
              **l2),

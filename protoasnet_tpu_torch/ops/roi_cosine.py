@@ -8,6 +8,9 @@ ProtoASNet's prototype head:
 with torch.nn.CosineSimilarity's eps=1e-8 clamp on each norm. The functions
 here are the plain PyTorch version; ``roi_cosine_head`` sends CUDA tensors
 to the hand-written kernel (``ops/roi_cosine_cuda.py``).
+``roi_cosine_backward`` is the head's gradient in closed form, the formula
+of the JAX package's custom VJP (``pallas_roi.py::_bwd``); the kernel's
+``torch.autograd.Function`` calls it.
 """
 
 from __future__ import annotations
@@ -18,7 +21,7 @@ from typing import Optional, Tuple
 import torch
 
 __all__ = ["roi_pool", "cosine_similarity_to_prototypes", "roi_cosine_torch",
-           "roi_cosine_head"]
+           "roi_cosine_backward", "roi_cosine_head"]
 
 _EPS = 1e-8
 
@@ -60,6 +63,48 @@ def roi_cosine_torch(occ: torch.Tensor, feat: torch.Tensor,
     roi = roi_pool(occ, feat)
     sim = (cosine_similarity_to_prototypes(roi, prototypes) + 1.0) / 2.0
     return roi, sim
+
+
+def roi_cosine_backward(occ2: torch.Tensor, feat2: torch.Tensor,
+                        protos: torch.Tensor, roi: torch.Tensor,
+                        g_roi: Optional[torch.Tensor],
+                        g_sim: Optional[torch.Tensor]
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The head's cotangents (g_occ (N,S,P), g_feat (N,S,D), g_protos
+    (P,D)) from the forward's residuals occ2 (N,S,P), feat2 (N,S,D),
+    protos (P,D), roi (N,P,D) and the output cotangents g_roi (N,P,D), g_sim
+    (N,P) (None: zero), as ``pallas_roi.py::_bwd`` computes them:
+
+        g_roi_total = g_roi + d cos/d roi * g_sim / 2   (both norms clamped)
+        g_feat = occ @ g_roi_total,  g_occ = feat @ g_roi_total^T   (fp32)
+        g_protos = sum over the batch of d cos/d proto * g_sim / 2
+
+    Each cotangent comes back in its primal's dtype (bf16 occ and feat in
+    the bf16 flagship, fp32 prototypes)."""
+    acc = _acc_dtype(occ2, feat2, protos, roi)
+    roi_a = roi.to(acc)
+    p_a = protos.to(acc)
+    rnorm = torch.linalg.vector_norm(roi_a, dim=-1, keepdim=True
+                                     ).clamp_min(_EPS)  # (N, P, 1)
+    pnorm = torch.linalg.vector_norm(p_a, dim=-1, keepdim=True
+                                     ).clamp_min(_EPS)[None]  # (1, P, 1)
+    cos = (roi_a * p_a[None]).sum(-1, keepdim=True) / (rnorm * pnorm)
+    g_roi_total = (torch.zeros_like(roi_a) if g_roi is None
+                   else g_roi.to(acc))
+    if g_sim is not None:
+        g_cos = (0.5 * g_sim.to(acc))[..., None]  # sim01 = (cos + 1) / 2
+        # d cos/d roi = p/(|r||p|) - cos * r/|r|^2
+        g_roi_total = g_roi_total + g_cos * (
+            p_a[None] / (rnorm * pnorm) - cos * roi_a / rnorm ** 2)
+        # d cos/d p = r/(|r||p|) - cos * p/|p|^2, summed over the batch
+        g_protos = (g_cos * (roi_a / (rnorm * pnorm)
+                             - cos * p_a[None] / pnorm ** 2)).sum(0)
+    else:
+        g_protos = torch.zeros_like(p_a)
+    g_feat = torch.bmm(occ2.to(acc), g_roi_total)  # (N, S, D)
+    g_occ = torch.bmm(feat2.to(acc), g_roi_total.transpose(1, 2))  # (N,S,P)
+    return (g_occ.to(occ2.dtype), g_feat.to(feat2.dtype),
+            g_protos.to(protos.dtype))
 
 
 def roi_cosine_head(occ: torch.Tensor, feat: torch.Tensor,

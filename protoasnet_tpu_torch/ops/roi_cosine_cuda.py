@@ -7,10 +7,15 @@ what bounds it and how it is laid out. The source is compiled for
 
 On a CUDA tensor the wrapper launches the kernel, once per call (the
 prototype norms are computed inside it), or raises; on a CPU tensor it runs
-the plain version (``ops/roi_cosine.py::roi_cosine_torch``). It counts its
-launches in ``roi_cosine_cuda.launches``. Forward only: the gradient
-(``pallas_roi._bwd``) comes with the training slice, so an input that
-requires grad is refused.
+the plain version (``ops/roi_cosine.py::roi_cosine_torch``) and its own
+autograd. It counts its launches in ``roi_cosine_cuda.launches``. When an
+input requires grad, the CUDA call goes through ``RoiCosineFunction``: its
+forward launches the kernel and keeps (occ, feat, prototypes, roi), its
+backward is ``roi_cosine_backward``, the closed form of the JAX package's
+custom VJP (``pallas_roi.py::_bwd``, plain XLA there, so two ``torch.bmm``
+in fp32 here); it counts its calls in ``roi_cosine_cuda.backward_calls``.
+The prototypes' gradient comes only from that backward, never from the
+detached fp32 copy the kernel reads.
 
 ``plan`` gives the launch the kernel takes (cluster size, blocks, shared
 memory); it mirrors the source's constants, and a card test compares its
@@ -27,9 +32,11 @@ from typing import NamedTuple, Tuple
 import torch
 
 from protoasnet_tpu_torch.ops.cuda_build import load_library
-from protoasnet_tpu_torch.ops.roi_cosine import roi_cosine_torch
+from protoasnet_tpu_torch.ops.roi_cosine import (roi_cosine_backward,
+                                                 roi_cosine_torch)
 
-__all__ = ["roi_cosine_cuda", "plan", "staging_aligned", "smem_bytes",
+__all__ = ["roi_cosine_cuda", "RoiCosineFunction", "plan", "staging_aligned",
+           "smem_bytes",
            "active_clusters", "SOURCE", "REPLACES"]
 
 SOURCE = "protoasnet_tpu_torch/csrc/roi_cosine.cu"
@@ -102,21 +109,62 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def _launch(occ2: torch.Tensor, feat2: torch.Tensor,
+            prototypes: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One kernel launch on contiguous occ2 (N,S,P), feat2 (N,S,D)."""
+    n, s, p = occ2.shape
+    d = feat2.shape[-1]
+    roi = torch.empty((n, p, d), dtype=torch.float32, device=occ2.device)
+    sim = torch.empty((n, p), dtype=torch.float32, device=occ2.device)
+    if n == 0 or p == 0:
+        return roi, sim
+    pl = plan(n, s, p, d, occ2.element_size())
+    protos = prototypes.detach().to(torch.float32).contiguous()
+    aligned = staging_aligned(occ2.element_size(), p, d, occ2.data_ptr(),
+                              feat2.data_ptr(), protos.data_ptr())
+    lib = _lib()
+    with torch.cuda.device(occ2.device):
+        stream = torch.cuda.current_stream(occ2.device).cuda_stream
+        err = lib.roi_cosine_forward(
+            occ2.data_ptr(), feat2.data_ptr(),
+            int(occ2.dtype == torch.bfloat16), protos.data_ptr(),
+            roi.data_ptr(), sim.data_ptr(), int(aligned), n, s, p, d,
+            pl.cluster, stream)
+    if err != 0:
+        raise RuntimeError("roi_cosine_cuda launch failed: "
+                           + lib.roi_cosine_error_string(err).decode())
+    roi_cosine_cuda.launches += 1
+    return roi, sim
+
+
+class RoiCosineFunction(torch.autograd.Function):
+    """The CUDA forward with the closed-form backward of ``pallas_roi``."""
+
+    @staticmethod
+    def forward(ctx, occ2, feat2, prototypes):
+        roi, sim = _launch(occ2, feat2, prototypes)
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(occ2, feat2, prototypes, roi)
+        return roi, sim
+
+    @staticmethod
+    def backward(ctx, g_roi, g_sim):
+        occ2, feat2, prototypes, roi = ctx.saved_tensors
+        roi_cosine_cuda.backward_calls += 1
+        return roi_cosine_backward(occ2, feat2, prototypes, roi, g_roi,
+                                   g_sim)
+
+
 def roi_cosine_cuda(occ: torch.Tensor, feat: torch.Tensor,
                     prototypes: torch.Tensor
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """occ (N, ..., P) non-negative, feat (N, ..., D) of one dtype (fp32 or
-    bf16), prototypes (P, D) -> (roi (N, P, D) fp32, sim01 (N, P) fp32)."""
+    bf16), prototypes (P, D) -> (roi (N, P, D) fp32, sim01 (N, P) fp32);
+    differentiable in all three."""
     if occ.device.type == "cpu":
         return roi_cosine_torch(occ, feat, prototypes)
     if occ.device.type != "cuda":
         raise ValueError(f"roi_cosine_cuda: unsupported device {occ.device}")
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (occ, feat, prototypes)):
-        raise RuntimeError(
-            "roi_cosine_cuda is forward-only: an input requires grad. Run "
-            "under torch.no_grad()/inference_mode(); the kernel's backward "
-            "is ported with the training slice")
     for name, t in (("feat", feat), ("prototypes", prototypes)):
         if t.device != occ.device:
             raise ValueError(f"roi_cosine_cuda: {name} on {t.device}, occ on "
@@ -140,26 +188,11 @@ def roi_cosine_cuda(occ: torch.Tensor, feat: torch.Tensor,
                          f"exceeds the kernel's grid")
     occ2 = occ.reshape(n, s, p).contiguous()
     feat2 = feat.reshape(n, s, d).contiguous()
-    roi = torch.empty((n, p, d), dtype=torch.float32, device=occ.device)
-    sim = torch.empty((n, p), dtype=torch.float32, device=occ.device)
-    if n == 0 or p == 0:
-        return roi, sim
-    protos = prototypes.detach().to(torch.float32).contiguous()
-    aligned = staging_aligned(occ2.element_size(), p, d, occ2.data_ptr(),
-                              feat2.data_ptr(), protos.data_ptr())
-    lib = _lib()
-    with torch.cuda.device(occ.device):
-        stream = torch.cuda.current_stream(occ.device).cuda_stream
-        err = lib.roi_cosine_forward(
-            occ2.data_ptr(), feat2.data_ptr(),
-            int(occ2.dtype == torch.bfloat16), protos.data_ptr(),
-            roi.data_ptr(), sim.data_ptr(), int(aligned), n, s, p, d,
-            pl.cluster, stream)
-    if err != 0:
-        raise RuntimeError("roi_cosine_cuda launch failed: "
-                           + lib.roi_cosine_error_string(err).decode())
-    roi_cosine_cuda.launches += 1
-    return roi, sim
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (occ, feat, prototypes)):
+        return RoiCosineFunction.apply(occ2, feat2, prototypes)
+    return _launch(occ2, feat2, prototypes)
 
 
 roi_cosine_cuda.launches = 0
+roi_cosine_cuda.backward_calls = 0

@@ -201,10 +201,44 @@ def test_roi_plan_matches_the_source(dev):
                 lib.roi_cosine_smem_bytes(int(elem == 2), s)
 
 
+@pytest.mark.parametrize("shape", [(2, 18, 6, 16), (5, 8 * 14 * 14, 40, 256)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_gradient_matches_plain_head(dev, shape, dtype):
+    """Inputs that require grad go through the Function: the CUDA forward
+    (one launch) and ``roi_cosine_backward`` (one call); its gradients
+    against the plain head's autograd, fp32 inputs in float64 (TF32 off,
+    1e-5 of max |ref|), bf16 inputs on the same bf16 values (1e-2), with
+    the cotangents in the primals' dtypes."""
+    occ32, feat32, protos = _data(shape, dev)
+    occ32 = occ32 * 0.05
+    g = torch.Generator(device=dev).manual_seed(3)
+    g_roi = torch.randn((shape[0], shape[2], shape[3]), device=dev,
+                        generator=g) * 1e-3
+    g_sim = torch.randn((shape[0], shape[2]), device=dev, generator=g)
+    ref_dt = torch.float64 if dtype == torch.float32 else torch.float32
+    leaves = [occ32.to(dtype), feat32.to(dtype), protos]
+    leaves = [t.clone().requires_grad_(True) for t in leaves]
+    launches = roi_cosine_cuda.launches
+    calls = roi_cosine_cuda.backward_calls
+    with no_tf32():
+        roi, sim = roi_cosine_cuda(*leaves)
+        ((roi * g_roi).sum() + (sim * g_sim).sum()).backward()
+        ref_in = [t.detach().to(ref_dt).requires_grad_(True) for t in leaves]
+        r_roi, r_sim = roi_cosine_torch(*ref_in)
+        ((r_roi * g_roi.to(ref_dt)).sum()
+         + (r_sim * g_sim.to(ref_dt)).sum()).backward()
+    torch.cuda.synchronize()
+    assert roi_cosine_cuda.launches == launches + 1
+    assert roi_cosine_cuda.backward_calls == calls + 1
+    assert [t.grad.dtype for t in leaves] == [dtype, dtype, torch.float32]
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    for name, t, r in zip(("occ", "feat", "protos"), leaves, ref_in):
+        _, rel = max_rel_err(t.grad, r.grad)
+        assert rel < tol, (name, rel)
+
+
 def test_kernel_refuses_bad_inputs(dev):
     occ, feat, protos = _data((2, 18, 6, 16), dev)
-    with pytest.raises(RuntimeError, match="forward-only"):
-        roi_cosine_cuda(occ, feat, protos.clone().requires_grad_(True))
     with pytest.raises(TypeError, match="both float32 or both bfloat16"):
         roi_cosine_cuda(occ.half(), feat.half(), protos)
     with pytest.raises(TypeError, match="both float32 or both bfloat16"):
@@ -232,6 +266,40 @@ def test_model_head_goes_through_the_kernel(dev):
     assert roi_cosine_cuda.launches == before + 1
     torch.testing.assert_close(sim, sim_p, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(logits, logits_p, rtol=1e-5, atol=1e-5)
+
+
+def test_train_step_goes_through_the_kernel_and_its_gradient(dev):
+    """A train step of the model on the card launches the kernel once (the
+    main forward's head; the affine(x) pass computes only the occurrence
+    map) and runs its backward once."""
+    from protoasnet_tpu_torch.losses.bundle import LossBundle
+    from protoasnet_tpu_torch.models.builder import build_model
+    from protoasnet_tpu_torch.train.optim import (GROUPS, GradAccumulator,
+                                                  GroupAdam)
+    from protoasnet_tpu_torch.train.steps import make_xprotonet_steps
+
+    cfg = {"name": "Video_XProtoNet", "base_architecture": "resnet2p1d_18",
+           "backbone_last_layer_num": -3, "prototype_shape": (8, 64, 1, 1, 1),
+           "num_classes": 4, "img_size": 32, "dtype": "bfloat16"}
+    model = build_model(cfg)
+    opt = GroupAdam(model, {g: 1e-3 for g in GROUPS})
+    step, _, _ = make_xprotonet_steps(
+        model, LossBundle({"ClusterRoiFeat": {"loss_weight": 0.8},
+                           "trans_occurrence": {"loss_weight": 0.1}},
+                          num_classes=4, abstain_class=True),
+        opt, GradAccumulator(opt.params, 1))
+    before = model.prototype_vectors.detach().clone()
+    launches = roi_cosine_cuda.launches
+    calls = roi_cosine_cuda.backward_calls
+    m = step(torch.randn((2, 8, 32, 32, 3), device=dev),
+             torch.tensor([0, 2], device=dev),
+             torch.tensor([True, True], device=dev),
+             {g: 1e-3 for g in GROUPS}, affine=(7.0, 1.2))
+    torch.cuda.synchronize()
+    assert m["applied"] and torch.isfinite(m["loss_all"])
+    assert roi_cosine_cuda.launches == launches + 1
+    assert roi_cosine_cuda.backward_calls == calls + 1
+    assert not torch.equal(model.prototype_vectors, before)
 
 
 def _l2_data(shape, dev, seed=12):

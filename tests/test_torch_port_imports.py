@@ -50,7 +50,15 @@ def test_port_imports_no_jax():
                  "models.backbones.resnet2d", "server", "ops.temporal_conv",
                  "ops.temporal_conv_cuda", "ops.fused_c2p1d",
                  "ops.fused_c2p1d_cuda", "experiments.common",
-                 "experiments.temporal_conv", "experiments.fused_c2p1d"):
+                 "experiments.temporal_conv", "experiments.fused_c2p1d",
+                 "ops.affine_fast", "losses.losses", "losses.bundle",
+                 "train.optim", "train.steps", "train.metrics",
+                 "train.aggregate", "train.agents", "train.agents.base",
+                 "train.agents.xprotonet", "data.intervals",
+                 "data.manifest", "data.native", "data.synthetic",
+                 "data.dataset", "push.push", "explain.render",
+                 "tracking.trackers", "utils.io", "utils.run",
+                 "models.pretrained", "main"):
         assert "protoasnet_tpu_torch." + name in out["modules"], name
     assert out["bad"] == []
 
@@ -102,6 +110,22 @@ def test_server_cli_refuses_without_cuda(tmp_path):
                         (8, 32, 32, 3))
     proc = _run(["-m", "protoasnet_tpu_torch.server", "--bundle", path,
                  "--port", "0", "--no_warmup"], REPO)
+    assert proc.returncode != 0
+    assert "CUDA is not available" in proc.stderr
+
+
+def test_training_entry_point_refuses_without_cuda(tmp_path):
+    """``protoasnet_tpu_torch.main`` without ``--device cpu``: it raises
+    before it writes a run directory, called and as a command."""
+    _no_card()
+    from protoasnet_tpu_torch.main import main
+
+    cfg = REPO / "protoasnet_tpu" / "configs" / "ours_protoasnet_video.yml"
+    args = [f"--config_path={cfg}", f"--save_dir={tmp_path / 'run'}"]
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        main(args)
+    assert not (tmp_path / "run").exists()
+    proc = _run(["-m", "protoasnet_tpu_torch.main", *args], REPO)
     assert proc.returncode != 0
     assert "CUDA is not available" in proc.stderr
 
