@@ -2,7 +2,8 @@
 flagship (Video ProtoASNet), the ProtoPNet baseline and the image
 ProtoASNet on one NVIDIA GPU, through the hand-written CUDA kernels, the
 experiment entry points of the R(2+1)D block kernels, and the training
-path of the video flagship.
+paths of the video flagship, the ProtoPNet baseline and the image
+ProtoASNet.
 
     python3 chip_smoke.py
 
@@ -54,7 +55,31 @@ raises and the script exits non-zero without printing a result):
    plain head's autograd (fp32 inputs vs float64, 1e-5 of max |ref|; bf16
    vs bf16, 1e-2), timed against its bound; one fp32 train step on the
    card against the same step on the CPU; clips/s of the bf16 micro-step
-   at batch 5 and its top device ops.
+   at batch 5 and its top device ops;
+8. the 2-D heads' gradients at their train heads (batch 20): the L2
+   head's through ``L2MinFunction`` (N=20, S=49, P=30, D=512, fp32)
+   against ``l2_min_backward`` in float64 and the plain head's float64
+   autograd (1e-5 of max |ref|), timed as trained (only min_d used)
+   against its bound, the plain autograd and the two products as
+   ``torch.matmul``; the ROI head's at the image head (N=20, S=49, P=40,
+   D=512) as in phase 7;
+9. the ProtoPNet training path: ``main`` on ``baseline_protopnet.yml``
+   at full width (ResNet-18, 224x224, 30x512 prototypes, fp32, train
+   batch 20) on 12 synthetic videos, cut with the config's own keys (two
+   epochs: warm, then joint with a push, val_push and the two last-layer
+   epochs; one micro-step an Adam step), checking ``bb.npy``,
+   ``bb-receptive_field.npy``, ``prototypes_info.pickle``, one picture per
+   prototype found, finite losses, the groups each stage moved (the
+   stages' Adam moments) and ``l2_min_cuda``'s launch and backward counts,
+   set to 0 just before and read just after (both > 0);
+10. the image ProtoASNet's training path: ``main`` on
+   ``ours_protoasnet_image.yml`` (bf16, train batch 20, one epoch with its
+   push), the same checks with ``roi_cosine_cuda``'s counts;
+11. ProtoPNet's fp32 train step on the card against the CPU's (loss terms
+   within 1e-5 relative);
+12. images/s of the ProtoPNet fp32 and the image ProtoASNet bf16 train
+   micro-steps at batch 20 on a device-resident batch, each with its
+   device-busy share and top device ops.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or of the JAX
@@ -823,17 +848,18 @@ def head_grad_bound_ms(n, s, p, d, dtype):
     return _bound(nbytes, 4 * n * s * p * d, dtype)
 
 
-def phase_head_grad(dev):
-    """The head's gradient through ``RoiCosineFunction`` at the train shape
-    (N=5, S=1568, P=40, D=256): fp32 inputs against a float64 plain-head
-    autograd (TF32 off, 1e-5 of max |ref|), bf16 inputs against the plain
-    head's autograd on the same bf16 inputs (1e-2); the backward timed
-    against its bound. Returns the bf16 record."""
+def phase_head_grad(dev, shape=TRAIN_HEAD, tag="7 head grad"):
+    """The head's gradient through ``RoiCosineFunction`` at a train shape
+    (the flagship's N=5, S=1568, P=40, D=256 unless ``shape`` says
+    otherwise): fp32 inputs against a float64 plain-head autograd (TF32
+    off, 1e-5 of max |ref|), bf16 inputs against the plain head's autograd
+    on the same bf16 inputs (1e-2); the backward timed against its bound.
+    Returns the bf16 record."""
     from protoasnet_tpu_torch.ops.roi_cosine import (roi_cosine_backward,
                                                      roi_cosine_torch)
     from protoasnet_tpu_torch.ops.roi_cosine_cuda import roi_cosine_cuda
 
-    n, s, p, d = (TRAIN_HEAD[k] for k in "nspd")
+    n, s, p, d = (shape[k] for k in "nspd")
     g = torch.Generator(device=dev).manual_seed(5)
     occ32 = torch.rand((n, s, p), device=dev, generator=g) * 0.05
     feat32 = torch.randn((n, s, d), device=dev, generator=g)
@@ -892,7 +918,7 @@ def phase_head_grad(dev):
         bound_ms, bound_by = head_grad_bound_ms(n, s, p, d, dtype)
         ms, plain_ms = min(times["kernel"]), min(times["plain"])
         err = max(e for e, _ in errs)
-        log(f"[7 head grad] {str(dtype)[6:]} N={n} S={s} P={p} D={d}: "
+        log(f"[{tag}] {str(dtype)[6:]} N={n} S={s} P={p} D={d}: "
             f"g_occ/g_feat/g_protos max abs err "
             f"{[f'{e:.3e}' for e, _ in errs]} "
             f"({[f'{r:.3e}' for _, r in errs]} of max |ref|, limit {tol:g}, "
@@ -908,39 +934,34 @@ def phase_head_grad(dev):
     return record
 
 
-def phase_train_step_vs_cpu(dev, cfg):
-    """One fp32 train step (TF32 off, batch 2, full width, the flagship's
-    loss weights and lr) on the card against the same step of the port on
-    the CPU: same weights, batch and affine draw. Held: the loss terms
-    within 1e-4 relative (cuDNN and CPU convolutions in another order); the
+def _step_vs_cpu(dev, tag, label, mcfg, make_step, sample, target, lr,
+                 term_tol, **step_kw):
+    """One fp32 train step (TF32 off, batch 2, full width) of the model of
+    ``mcfg`` on the card against the same step of the port on the CPU:
+    same weights and batch (and ``step_kw``, the affine draw);
+    ``make_step(model, optimizer)`` gives the train step. Held: the loss terms within ``term_tol``
+    relative (cuDNN and CPU convolutions in another order); the
     prototypes' and readout's gradients within 1e-4 of their max; on each
     device the update is Adam's first step, -lr * g / (|g| + eps) with g
     the gradient plus the weight decay, within 2.5e-7 (the fp32 rounding of
     the parameters, |p| < 2); and no update flips its sign."""
-    from protoasnet_tpu_torch.losses.bundle import LossBundle
     from protoasnet_tpu_torch.models.builder import build_model
-    from protoasnet_tpu_torch.train.optim import (GROUPS, GradAccumulator,
-                                                  GroupAdam)
-    from protoasnet_tpu_torch.train.steps import make_xprotonet_steps
+    from protoasnet_tpu_torch.train.optim import GROUPS, GroupAdam
 
-    mcfg = dict(cfg["model"], dtype="float32")
-    lr, wd, eps = float(cfg["train"]["optimizer"]["lr_same"]), 1e-3, 1e-8
+    wd, eps = 1e-3, 1e-8
     rng = np.random.default_rng(6)
-    x = torch.from_numpy(rng.normal(size=(2, *CLIP)).astype(np.float32))
-    target = torch.tensor([0, 2])
+    x = torch.from_numpy(rng.normal(size=(2, *sample)).astype(np.float32))
     valid = torch.tensor([True, True])
     names = ("prototype_vectors", "last_layer.Dense_0.weight")
     out = []
     for device in (torch.device("cpu"), dev):
-        model = build_model(mcfg, device=device, seed=0)
+        model = build_model(dict(mcfg, dtype="float32"), device=device,
+                            seed=0)
         opt = GroupAdam(model, {gr: wd for gr in GROUPS})
-        step, _, _ = make_xprotonet_steps(
-            model, LossBundle(cfg["train"]["criterion"], num_classes=4,
-                              abstain_class=True),
-            opt, GradAccumulator(opt.params, 2))
+        step = make_step(model, opt)
         with no_tf32():
             m = step(x.to(device), target.to(device), valid.to(device),
-                     {gr: lr for gr in GROUPS}, affine=(11.0, 1.25))
+                     {gr: lr for gr in GROUPS}, **step_kw)
             if m["applied"]:
                 raise AssertionError("micro-step 1 of 2 applied")
             params = dict(model.named_parameters())
@@ -967,22 +988,94 @@ def phase_train_step_vs_cpu(dev, cfg):
                    for k in names)
     flips = sum(int(((card["moved"][k] * cpu["moved"][k]) < 0).sum())
                 for k in names)
-    log(f"[7 train step] fp32 batch 2 card vs CPU: loss terms max rel diff "
-        f"{term_rel:.3e} ({cpu['terms']['loss_all']:.6f} vs "
-        f"{card['terms']['loss_all']:.6f}); prototype_vectors/last_layer "
-        f"gradients max diff {grad_rel:.3e} of their max; updates vs Adam's "
+    log(f"[{tag}] {label} fp32 batch 2 card vs CPU: loss terms max rel diff "
+        f"{term_rel:.3e} (limit {term_tol:g}; {cpu['terms']['loss_all']:.6f}"
+        f" vs {card['terms']['loss_all']:.6f}); prototype_vectors/last_layer"
+        f" gradients max diff {grad_rel:.3e} of their max; updates vs Adam's "
         f"first step {adam_err:.3e}; card vs CPU updates max abs diff "
         f"{upd_diff:.3e} (lr {lr:g}), {flips} sign flips")
-    if term_rel > 1e-4 or grad_rel > 1e-4 or adam_err > 2.5e-7 or flips:
-        raise AssertionError("card train step differs from the CPU's")
+    if term_rel > term_tol or grad_rel > 1e-4 or adam_err > 2.5e-7 or flips:
+        raise AssertionError(f"{label}: card train step differs from the "
+                             f"CPU's")
+
+
+def phase_train_step_vs_cpu(dev, cfg):
+    """The flagship's fp32 train step (its loss weights and lr) on the card
+    against the CPU's, loss terms within 1e-4 relative."""
+    from protoasnet_tpu_torch.losses.bundle import LossBundle
+    from protoasnet_tpu_torch.train.optim import GradAccumulator
+    from protoasnet_tpu_torch.train.steps import make_xprotonet_steps
+
+    bundle = LossBundle(cfg["train"]["criterion"], num_classes=4,
+                        abstain_class=True)
+    _step_vs_cpu(dev, "7 train step", "flagship", cfg["model"],
+                 lambda model, opt: make_xprotonet_steps(
+                     model, bundle, opt, GradAccumulator(opt.params, 2))[0],
+                 CLIP, torch.tensor([0, 2]),
+                 float(cfg["train"]["optimizer"]["lr_same"]), 1e-4,
+                 affine=(11.0, 1.25))
+
+
+def _train_rate(tag, what, step, x, target, unit, **kw):
+    """Samples/s of ``step`` (a train micro-step) on the device-resident
+    batch ``x``, the device-busy share and the top device ops of two
+    profiled micro-steps; returns (samples/s, busy share)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from protoasnet_tpu_torch.train.optim import GROUPS
+
+    n = len(x)
+    valid = torch.ones(n, dtype=torch.bool, device=x.device)
+    lrs = {gr: 1e-4 for gr in GROUPS}
+    for _ in range(4):
+        step(x, target, valid, lrs, **kw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    iters = 20
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        step(x, target, valid, lrs, **kw)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / iters * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):
+            step(x, target, valid, lrs, **kw)
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    # kernels only: a user annotation's range (``Optimizer.step#Adam.step``)
+    # spans the kernels launched inside it and the gaps between them
+    rows = [(getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0)) / 2e3, e.key,
+             e.count // 2) for e in events
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not (getattr(e, "is_user_annotation", False) or "#" in e.key)]
+    busy = sum(r[0] for r in rows)
+    rows.sort(reverse=True)
+    host = sorted(((e.self_cpu_time_total / 2e3, e.key, e.count // 2)
+                   for e in events
+                   if e.device_type == torch.autograd.DeviceType.CPU),
+                  reverse=True)
+    log(f"[{tag}] {what}: {ms:.2f} ms, {n / ms * 1e3:.1f} {unit}/s, peak "
+        f"memory {peak:.2f} GiB; device busy {busy:.2f} ms per micro-step "
+        f"({100 * busy / ms:.1f}% of it; kernels only, profiler, 2 "
+        f"micro-steps)")
+    for dev_ms, name, count in rows[:12]:
+        log(f"[{tag}]   {dev_ms:9.3f} ms {100 * dev_ms / busy:5.1f}% "
+            f"x{count:<4d} {name[:110]}")
+    log(f"[{tag}] host: self CPU ms per micro-step (profiler; the "
+        f"profiler's own cost included), top 8 of "
+        f"{sum(h[0] for h in host):.2f} ms:")
+    for cpu_ms, name, count in host[:8]:
+        log(f"[{tag}]   {cpu_ms:9.3f} ms x{count:<4d} {name[:110]}")
+    return n / ms * 1e3, busy / ms
 
 
 def phase_train_rate(dev, cfg):
     """Clips/s of the bf16 flagship's train micro-step at batch 5 (the
     pair forward, all terms, backward, one Adam step every 2), and the
     top device ops of one profiled micro-step."""
-    from torch.profiler import ProfilerActivity, profile
-
     from protoasnet_tpu_torch.losses.bundle import LossBundle
     from protoasnet_tpu_torch.models.builder import build_model
     from protoasnet_tpu_torch.train.optim import (GROUPS, GradAccumulator,
@@ -995,41 +1088,257 @@ def phase_train_rate(dev, cfg):
         model, LossBundle(cfg["train"]["criterion"], num_classes=4,
                           abstain_class=True),
         opt, GradAccumulator(opt.params, 2))
-    g = torch.Generator().manual_seed(8)
-    x = torch.randn((5, *CLIP), device=dev)
-    target = torch.tensor([0, 1, 2, 0, 1], device=dev)
-    valid = torch.ones(5, dtype=torch.bool, device=dev)
-    lrs = {gr: 1e-4 for gr in GROUPS}
-    for _ in range(4):
-        step(x, target, valid, lrs, generator=g)
+    rate, _ = _train_rate(
+        "7 train rate", "bf16 flagship train micro-step at batch 5 (pair "
+        "forward, 7 terms, backward, Adam every 2)", step,
+        torch.randn((5, *CLIP), device=dev),
+        torch.tensor([0, 1, 2, 0, 1], device=dev), "clips",
+        generator=torch.Generator().manual_seed(8))
+    return rate
+
+
+# phases 8-12: the 2-D family's training paths
+L2_TRAIN_HEAD = dict(n=20, s=7 * 7, p=30, d=512)  # ProtoPNet at batch 20
+IMAGE_TRAIN_HEAD = dict(n=20, s=7 * 7, p=40, d=512)  # image ProtoASNet
+# the 2-D training runs, cut with the configs' own keys: two epochs (warm,
+# then joint with the push), one micro-step an Adam step; the image
+# ProtoASNet one epoch with its push
+TRAIN_2D_ARGS = {
+    PPNET["label"]: ("--train.num_train_epochs=2",
+                     "--train.num_warm_epochs=1", "--train.push_start=1",
+                     "--train.push_rate=1", "--train.accumulation_steps=1"),
+    IMAGE["label"]: ("--train.num_train_epochs=1",
+                     "--train.num_warm_epochs=0", "--train.push_start=0",
+                     "--train.push_rate=1", "--train.accumulation_steps=1"),
+}
+
+
+def l2_grad_bound_ms(n, s, p, d, with_g_dist):
+    """Least time for the L2 head's backward on an H100: x (N,S,D), w
+    (P,D), dist (N,S,P), g_min (N,P) and, when the distances are used,
+    g_dist (N,S,P) read once, g_x and g_w written once, all fp32, against
+    the FLOPs of the two products (2 * 2*N*S*P*D) at the fp32 rate."""
+    nbytes = (2 * n * s * d + 2 * p * d + n * s * p * (2 if with_g_dist
+                                                       else 1)
+              + n * p) * 4
+    return _bound(nbytes, 4 * n * s * p * d, torch.float32)
+
+
+def phase_l2_grad(dev):
+    """The L2 head's gradient through ``L2MinFunction`` at ProtoPNet's train
+    head (N=20, S=49, P=30, D=512, fp32): against ``l2_min_backward`` in
+    float64 on the same inputs and the kernel's distances, and against the
+    plain head's float64 autograd (these inputs have no ties), both within
+    1e-5 of max |ref|. The backward timed as the training path calls it
+    (only min_d is used, so g_dist is None) against its bound, the plain
+    head's autograd backward and the two products as ``torch.matmul``.
+    Returns its record."""
+    from protoasnet_tpu_torch.ops.l2_min import (l2_min_backward,
+                                                 l2_min_torch)
+    from protoasnet_tpu_torch.ops.l2_min_cuda import l2_min_cuda
+
+    n, s, p, d = (L2_TRAIN_HEAD[k] for k in "nspd")
+    g = torch.Generator(device=dev).manual_seed(9)
+    x = torch.sigmoid(torch.randn((n, s, d), device=dev, generator=g))
+    w = torch.rand((p, 1, 1, d), device=dev, generator=g)
+    g_dist = torch.randn((n, s, p), device=dev, generator=g)
+    g_min = torch.randn((n, p), device=dev, generator=g)
+    xr, wr = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    with no_tf32():
+        dist, min_d = l2_min_cuda(xr, wr)
+        ((dist * g_dist).sum() + (min_d * g_min).sum()).backward()
+        ref = l2_min_backward(x.double(), w.double().reshape(p, d),
+                              dist.detach(), g_dist.double(),
+                              g_min.double())
+        x64 = x.double().requires_grad_(True)
+        w64 = w.double().requires_grad_(True)
+        r_dist, r_min = l2_min_torch(x64, w64)
+        ((r_dist * g_dist.double()).sum()
+         + (r_min * g_min.double()).sum()).backward()
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    iters = 20
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        step(x, target, valid, lrs, generator=g)
-    torch.cuda.synchronize()
-    ms = (time.perf_counter() - t0) / iters * 1e3
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(2):
-            step(x, target, valid, lrs, generator=g)
+    errs = [max_rel_err(xr.grad, ref[0]),
+            max_rel_err(wr.grad, ref[1].reshape(w.shape)),
+            max_rel_err(xr.grad, x64.grad), max_rel_err(wr.grad, w64.grad)]
+    if (xr.grad.dtype, wr.grad.dtype) != (torch.float32, torch.float32) or \
+            max(r for _, r in errs) >= 1e-5:
+        raise AssertionError(f"L2 gradient: {xr.grad.dtype}, "
+                             f"{wr.grad.dtype}, errors {errs} (limit 1e-5 "
+                             f"of max |ref|)")
+    dist_d, w2 = dist.detach(), w.reshape(p, d)
+
+    def bwd():
+        return l2_min_backward(x, w2, dist_d, None, g_min)
+
+    p_in = [x.clone().requires_grad_(True), w.clone().requires_grad_(True)]
+    _, p_min = l2_min_torch(*p_in)
+
+    def plain_bwd():
+        return torch.autograd.grad(p_min, p_in, g_min, retain_graph=True)
+
+    g_full = torch.randn((n, s, p), device=dev, generator=g)
+    x2 = x.reshape(n * s, d)
+
+    def matmul_pair():
+        return (torch.matmul(g_full, w2),
+                torch.matmul(g_full.reshape(n * s, p).T, x2))
+
+    with no_tf32():
+        times = {"plain": [], "kernel": []}
+        for which in ("plain", "kernel", "kernel", "plain"):
+            times[which].append(time_ms(
+                plain_bwd if which == "plain" else bwd, 100))
+        lib_ms = time_ms(matmul_pair, 100)
+    bound_ms, bound_by = l2_grad_bound_ms(n, s, p, d, with_g_dist=False)
+    ms, plain_ms = min(times["kernel"]), min(times["plain"])
+    log(f"[8 l2 grad] fp32 N={n} S={s} P={p} D={d}: g_x/g_w max abs err vs "
+        f"float64 l2_min_backward {errs[0][0]:.3e}/{errs[1][0]:.3e} "
+        f"({errs[0][1]:.3e}/{errs[1][1]:.3e} of max |ref|), vs float64 "
+        f"plain autograd {errs[2][1]:.3e}/{errs[3][1]:.3e} of max |ref| "
+        f"(limit 1e-5); backward as trained (g_min only) {ms:.4f} ms (runs "
+        f"{times['kernel']}), plain autograd backward {plain_ms:.4f} ms, "
+        f"the two products as torch.matmul {lib_ms:.4f} ms, bound "
+        f"{bound_ms:.4f} ms ({bound_by})")
+    return {"max_abs_err": max(errs[0][0], errs[1][0]), "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": lib_ms}
+
+
+def phase_train_2d(dev, spec, cfg, counter, tag):
+    """``protoasnet_tpu_torch.main.main`` on 12 synthetic videos (images
+    at 224x224, frames=1) with the full-width model of ``spec``'s config
+    and its own batch, cut by ``TRAIN_2D_ARGS``. ``counter``'s launch and
+    backward counts are set to 0 just before and read just after. Checks
+    the run's files, the push's pictures against the prototypes found,
+    finite losses, which groups each stage moved and that the optimiser
+    stepped. Returns (launches, backward calls)."""
+    import pickle
+
+    from protoasnet_tpu_torch.data.synthetic import make_synthetic_dataset
+    from protoasnet_tpu_torch.main import main as train_main
+    from protoasnet_tpu_torch.models.builder import build_model
+    from protoasnet_tpu_torch.train.optim import group_of
+
+    ppnet = spec is PPNET
+    with tempfile.TemporaryDirectory() as tmp:
+        csv = make_synthetic_dataset(str(Path(tmp) / "data"),
+                                     num_videos=12, seed=3)
+        args = [f"--config_path={CONFIGS / spec['config']}",
+                f"--save_dir={Path(tmp) / 'run'}",
+                f"--data.data_info_file={csv}", *TRAIN_2D_ARGS[spec["label"]]]
+        counter.launches = 0
+        counter.backward_calls = 0
+        t0 = time.monotonic()
+        agent = train_main(args)
         torch.cuda.synchronize()
-    rows = [(getattr(e, "self_device_time_total",
-                     getattr(e, "self_cuda_time_total", 0.0)) / 2e3, e.key,
-             e.count // 2) for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = sum(r[0] for r in rows)
-    rows.sort(reverse=True)
-    log(f"[7 train rate] bf16 flagship train micro-step at batch 5 (pair "
-        f"forward, 7 terms, backward, Adam every 2): {ms:.2f} ms, "
-        f"{5 / ms * 1e3:.1f} clips/s, peak memory {peak:.2f} GiB; device "
-        f"busy {busy:.2f} ms per micro-step (profiler, 2 micro-steps)")
-    for dev_ms, name, count in rows[:12]:
-        log(f"[7 train rate]   {dev_ms:9.3f} ms {100 * dev_ms / busy:5.1f}% "
-            f"x{count:<4d} {name[:110]}")
-    return 5 / ms * 1e3
+        seconds = time.monotonic() - t0
+        launches, calls = counter.launches, counter.backward_calls
+        run = Path(agent.save_dir)
+        push = run / "img" / f"epoch-{1 if ppnet else 0}_pushed"
+        files = (["bb.npy", "bb-receptive_field.npy"] if ppnet else []) + [
+            "prototypes_info.pickle"]
+        for name in ["last.ckpt", "metrics.jsonl"] + [
+                str(push.relative_to(run) / f) for f in files]:
+            if not (run / name).exists():
+                raise AssertionError(f"{spec['label']}: training run lacks "
+                                     f"{name}")
+        with open(push / "prototypes_info.pickle", "rb") as f:
+            info = pickle.load(f)
+        found = int((np.asarray(info["prototypes_gts"]) >= 0).sum())
+        pngs = len(list(push.glob("*.png")))
+        if not found or pngs != found:
+            raise AssertionError(f"{spec['label']}: {pngs} pictures for "
+                                 f"{found} prototypes found")
+        n_losses, modes = _finite_losses(run / "metrics.jsonl")
+        if not {"train", "val", "val_push"} <= modes:
+            raise AssertionError(f"{spec['label']}: epoch rows of "
+                                 f"{sorted(modes)} only")
+        init = build_model(cfg["model"], device="cpu",
+                           seed=int(cfg["train"]["seed"])).state_dict()
+        moved = {group_of(k) for k, v in agent.model.named_parameters()
+                 if not torch.equal(v.detach().cpu(), init[k])}
+        if moved != {group_of(k) for k, _ in
+                     agent.model.named_parameters()}:
+            raise AssertionError(f"{spec['label']}: groups moved {moved}")
+        stages = {}
+        if ppnet:
+            # a stage's Adam moments are nonzero exactly for the groups it
+            # moved: frozen groups get no gradient and no weight decay
+            from protoasnet_tpu_torch.utils.io import load_checkpoint
+
+            ckpt = load_checkpoint(str(run / "last.ckpt"))
+            name_of = {id(v): k for k, v in agent.model.named_parameters()}
+            for st in ("warm", "last"):
+                # the state's indices follow the optimiser's parameter order
+                names = [name_of[id(v)]
+                         for v in agent.stages.optimizers[st].params]
+                state = ckpt[f"optimizer_{st}"]["state"]
+                stages[st] = sorted({group_of(names[i]) for i, v in
+                                     state.items() if v["exp_avg"].any()})
+            if stages != {"warm": ["add_on", "prototypes"],
+                          "last": ["last_layer"]}:
+                raise AssertionError(f"ProtoPNet: stages moved {stages}")
+    if not (launches and calls):
+        raise AssertionError(f"{spec['label']} training path: kernel "
+                             f"launches {launches}, backward calls {calls}")
+    log(f"[{tag}] python -m protoasnet_tpu_torch.main --config_path="
+        f"{spec['config']} {' '.join(args[3:])} (full width, "
+        f"{agent.model.dtype}, train batch "
+        f"{agent.data_loaders['train'].batch_size}): done in "
+        f"{seconds:.1f}s; {n_losses} finite loss values; {found} prototypes "
+        f"found, {pngs} pictures; groups moved {sorted(moved)}"
+        + (f"; Adam moments by stage {stages}" if stages else "")
+        + f"; {counter.__name__} launches {launches}, backward calls "
+        f"{calls}")
+    return launches, calls
+
+
+def phase_ppnet_step_vs_cpu(dev, cfg):
+    """ProtoPNet's fp32 train step on the card against the CPU's, loss
+    terms within 1e-5 relative."""
+    from protoasnet_tpu_torch.losses.bundle import LossBundle
+    from protoasnet_tpu_torch.train.optim import GradAccumulator
+    from protoasnet_tpu_torch.train.steps import make_protopnet_steps
+
+    bundle = LossBundle(cfg["train"]["criterion"], num_classes=3,
+                        abstain_class=False)
+    _step_vs_cpu(dev, "11 train step", "ProtoPNet", cfg["model"],
+                 lambda model, opt: make_protopnet_steps(
+                     model, bundle, opt, GradAccumulator(opt.params, 2))[0],
+                 PPNET["sample"], torch.tensor([0, 2]), 1e-4, 1e-5)
+
+
+def phase_train_rate_2d(dev, cfgs):
+    """Images/s of the train micro-steps at batch 20 (one Adam step each)
+    on a device-resident batch: ProtoPNet fp32 and the image ProtoASNet
+    bf16, each with its busy share and top device ops."""
+    from protoasnet_tpu_torch.losses.bundle import LossBundle
+    from protoasnet_tpu_torch.models.builder import build_model
+    from protoasnet_tpu_torch.train.optim import (GROUPS, GradAccumulator,
+                                                  GroupAdam)
+    from protoasnet_tpu_torch.train.steps import (make_protopnet_steps,
+                                                  make_xprotonet_steps)
+
+    out = {}
+    for spec, make, k in ((PPNET, make_protopnet_steps, 3),
+                          (IMAGE, make_xprotonet_steps, 4)):
+        cfg = cfgs[spec["label"]]
+        model = build_model(cfg["model"], device=dev, seed=0)
+        opt = GroupAdam(model, {gr: 1e-3 for gr in GROUPS})
+        step = make(model, LossBundle(cfg["train"]["criterion"],
+                                      num_classes=k,
+                                      abstain_class=spec is IMAGE),
+                    opt, GradAccumulator(opt.params, 1))[0]
+        dt = "bf16" if model.dtype == torch.bfloat16 else "fp32"
+        # the image ProtoASNet draws its TransformLoss affine from this
+        kw = {} if spec is PPNET else {
+            "generator": torch.Generator().manual_seed(8)}
+        out[spec["label"]] = _train_rate(
+            "12 train rate", f"{spec['label']} {dt} train micro-step at "
+            f"batch 20 (forward, terms, backward, Adam)", step,
+            torch.randn((20, *spec["sample"]), device=dev),
+            torch.arange(20, device=dev) % 3, "images", **kw)
+        del model, opt, step
+    return out
 
 
 def _record(r):
@@ -1085,16 +1394,30 @@ def main() -> int:
     backward = phase_head_grad(dev)
     phase_train_step_vs_cpu(dev, cfgs[VIDEO["label"]])
     phase_train_rate(dev, cfgs[VIDEO["label"]])
+    # the 2-D family's training: each path with its kernel's counts set to
+    # 0 just before it and read just after it
+    l2_backward = phase_l2_grad(dev)
+    phase_head_grad(dev, IMAGE_TRAIN_HEAD, "8 head grad image")
+    l2_train, l2_calls = phase_train_2d(dev, PPNET, cfgs[PPNET["label"]],
+                                        l2_mod.l2_min_cuda,
+                                        "9 train ProtoPNet")
+    launches["l2_min_cuda"] += l2_train
+    roi_train, roi_calls = phase_train_2d(dev, IMAGE, cfgs[IMAGE["label"]],
+                                          roi_mod.roi_cosine_cuda,
+                                          "10 train image ProtoASNet")
+    launches["roi_cosine_cuda"] += roi_train
+    phase_ppnet_step_vs_cpu(dev, cfgs[PPNET["label"]])
+    phase_train_rate_2d(dev, cfgs)
     print(card)
     print(json.dumps({"kernels": [
         dict(name="roi_cosine_cuda", route="cuda", source=roi_mod.SOURCE,
              replaces=roi_mod.REPLACES,
              launches=launches["roi_cosine_cuda"], **head,
-             backward=dict(backward,
-                           calls=train_counts["backward_calls"])),
+             backward=dict(backward, calls=train_counts["backward_calls"]
+                           + roi_calls)),
         dict(name="l2_min_cuda", route="cuda", source=l2_mod.SOURCE,
              replaces=l2_mod.REPLACES, launches=launches["l2_min_cuda"],
-             **l2),
+             **l2, backward=dict(l2_backward, calls=l2_calls)),
         dict(name="temporal_conv_cuda", route="cuda",
              source=temporal_mod.SOURCE, replaces=temporal_mod.REPLACES,
              launches=launches["temporal_conv_cuda"],

@@ -15,6 +15,13 @@ config) go through the fused distance + min head (``ops/l2_min.py``: the
 CUDA kernel on the card, its plain version on the CPU); other prototype
 sizes through ``ops/l2conv.py``. ``dtype=torch.bfloat16`` runs the trunk
 and Linears under bf16 autocast; the distances are computed in fp32.
+
+Training differentiates through the same head: on the card the kernel's
+autograd Function (``ops/l2_min_cuda.py::L2MinFunction``, the gradient of
+the JAX package's Pallas head, a tied minimum's cotangent to its first
+position), on the CPU torch's autograd of the plain head (a tie's
+cotangent split evenly, as JAX's default "xla" head does); other
+prototype sizes through torch's autograd of ``l2_patch_distances``.
 """
 
 from __future__ import annotations

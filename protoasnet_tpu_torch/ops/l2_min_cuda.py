@@ -1,4 +1,5 @@
-"""Wrapper of the hand-written Hopper L2-distance + min-pool kernel (forward).
+"""Wrapper of the hand-written Hopper L2-distance + min-pool kernel, and its
+autograd Function.
 
 ``csrc/l2_min.cu`` replaces the Pallas TPU kernel
 ``protoasnet_tpu/ops/pallas_l2.py::l2_min_pallas``; its header says what
@@ -7,11 +8,18 @@ first use (``ops/cuda_build.py``).
 
 On a CUDA tensor the wrapper launches the kernel, once per call (|w|^2 is
 computed inside it), or raises; on a CPU tensor it runs the plain version
-(``ops/l2_min.py::l2_min_torch``). It counts its launches in
-``l2_min_cuda.launches``. The kernel computes in fp32: bf16 inputs are cast
-to fp32 first, as the Pallas wrapper does, and float64 is refused rather
-than rounded. Forward only: the gradient (``pallas_l2._bwd``) comes with the
-training slice, so an input that requires grad is refused.
+(``ops/l2_min.py::l2_min_torch``) and its own autograd. It counts its
+launches in ``l2_min_cuda.launches``. The kernel computes in fp32: bf16
+inputs are cast to fp32 first, as the Pallas wrapper does, and float64 is
+refused rather than rounded. When an input requires grad, the CUDA call
+goes through ``L2MinFunction``: its forward launches the kernel and keeps
+(x, w, dist) with dist the kernel's own output, so the backward's argmin
+is taken on the values the forward returned; its backward is
+``l2_min_backward``, the closed form of the JAX package's custom VJP
+(``pallas_l2.py::_bwd``, plain XLA there, so two ``torch.matmul`` in fp32
+here); it counts its calls in ``l2_min_cuda.backward_calls``. The
+prototypes' gradient comes only from that backward, never from the
+detached fp32 copy the kernel reads.
 
 ``plan`` gives the launch the kernel takes (cluster size, d range per
 block, blocks, shared memory); it mirrors the source's constants, and a
@@ -29,10 +37,10 @@ from typing import NamedTuple, Tuple
 import torch
 
 from protoasnet_tpu_torch.ops.cuda_build import load_library
-from protoasnet_tpu_torch.ops.l2_min import l2_min_torch
+from protoasnet_tpu_torch.ops.l2_min import l2_min_backward, l2_min_torch
 
-__all__ = ["l2_min_cuda", "plan", "staging_aligned", "active_clusters",
-           "SOURCE", "REPLACES"]
+__all__ = ["l2_min_cuda", "L2MinFunction", "plan", "staging_aligned",
+           "active_clusters", "SOURCE", "REPLACES"]
 
 SOURCE = "protoasnet_tpu_torch/csrc/l2_min.cu"
 REPLACES = "protoasnet_tpu/ops/pallas_l2.py:45"
@@ -102,20 +110,62 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def _launch(x3: torch.Tensor, prototypes: torch.Tensor
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One kernel launch on x3 (N, S, D) and prototypes (P, ..., D) that
+    the wrapper checked: (dist (N, S, P), min_d (N, P)) fp32."""
+    n, s, d = x3.shape
+    p = prototypes.shape[0]
+    dist = torch.empty((n, s, p), dtype=torch.float32, device=x3.device)
+    min_d = torch.empty((n, p), dtype=torch.float32, device=x3.device)
+    if n == 0 or p == 0:
+        return dist, min_d
+    pl = plan(n, p, d)
+    xf = x3.detach().to(torch.float32).contiguous()
+    w = prototypes.detach().reshape(p, d).to(torch.float32).contiguous()
+    aligned = staging_aligned(d, xf.data_ptr(), w.data_ptr())
+    lib = _lib()
+    with torch.cuda.device(x3.device):
+        stream = torch.cuda.current_stream(x3.device).cuda_stream
+        err = lib.l2_min_forward(xf.data_ptr(), w.data_ptr(),
+                                 dist.data_ptr(), min_d.data_ptr(),
+                                 int(aligned), n, s, p, d, pl.cluster,
+                                 pl.d_range, stream)
+    if err != 0:
+        raise RuntimeError("l2_min_cuda launch failed: "
+                           + lib.l2_min_error_string(err).decode())
+    l2_min_cuda.launches += 1
+    return dist, min_d
+
+
+class L2MinFunction(torch.autograd.Function):
+    """The CUDA forward with the closed-form backward of ``pallas_l2``."""
+
+    @staticmethod
+    def forward(ctx, x3, prototypes):
+        dist, min_d = _launch(x3, prototypes)
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x3, prototypes, dist)
+        return dist, min_d
+
+    @staticmethod
+    def backward(ctx, g_dist, g_min):
+        x3, prototypes, dist = ctx.saved_tensors
+        l2_min_cuda.backward_calls += 1
+        p, d = prototypes.shape[0], x3.shape[-1]
+        g_x, g_w = l2_min_backward(x3, prototypes.reshape(p, d), dist,
+                                   g_dist, g_min)
+        return g_x, g_w.reshape(prototypes.shape)
+
+
 def l2_min_cuda(x: torch.Tensor, prototypes: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (N, ..., D), prototypes (P, 1, 1, D) or (P, D) -> (dist (N, ...,
-    P) fp32, min_d (N, P) fp32)."""
+    P) fp32, min_d (N, P) fp32); differentiable in both."""
     if x.device.type == "cpu":
         return l2_min_torch(x, prototypes)
     if x.device.type != "cuda":
         raise ValueError(f"l2_min_cuda: unsupported device {x.device}")
-    if torch.is_grad_enabled() and (x.requires_grad
-                                    or prototypes.requires_grad):
-        raise RuntimeError(
-            "l2_min_cuda is forward-only: an input requires grad. Run under "
-            "torch.no_grad()/inference_mode(); the kernel's backward is "
-            "ported with the training slice")
     if prototypes.device != x.device:
         raise ValueError(f"l2_min_cuda: prototypes on {prototypes.device}, "
                          f"x on {x.device}")
@@ -132,7 +182,6 @@ def l2_min_cuda(x: torch.Tensor, prototypes: torch.Tensor
                          f" must be (P, {d}) or (P, 1, 1, {d}) for x "
                          f"{tuple(x.shape)}")
     s = math.prod(x.shape[1:-1])  # positions (explicit: N may be 0)
-    x3 = x.detach().reshape(n, s, d).to(torch.float32).contiguous()
     if s == 0:
         raise ValueError(f"l2_min_cuda: x {tuple(x.shape)} has no positions "
                          f"to take the minimum over")
@@ -140,24 +189,14 @@ def l2_min_cuda(x: torch.Tensor, prototypes: torch.Tensor
     if max(pl.cluster * n, s, d) > _INT_MAX or -(-p // P_BLOCK) > _MAX_GRID_Y:
         raise ValueError(f"l2_min_cuda: (N, S, P, D) = {(n, s, p, d)} "
                          f"exceeds the kernel's grid")
-    dist = torch.empty((n, s, p), dtype=torch.float32, device=x.device)
-    min_d = torch.empty((n, p), dtype=torch.float32, device=x.device)
-    if n == 0 or p == 0:
-        return dist.reshape(*x.shape[:-1], p), min_d
-    w = prototypes.detach().reshape(p, d).to(torch.float32).contiguous()
-    aligned = staging_aligned(d, x3.data_ptr(), w.data_ptr())
-    lib = _lib()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.l2_min_forward(x3.data_ptr(), w.data_ptr(),
-                                 dist.data_ptr(), min_d.data_ptr(),
-                                 int(aligned), n, s, p, d, pl.cluster,
-                                 pl.d_range, stream)
-    if err != 0:
-        raise RuntimeError("l2_min_cuda launch failed: "
-                           + lib.l2_min_error_string(err).decode())
-    l2_min_cuda.launches += 1
+    x3 = x.reshape(n, s, d)
+    if torch.is_grad_enabled() and (x.requires_grad
+                                    or prototypes.requires_grad):
+        dist, min_d = L2MinFunction.apply(x3, prototypes)
+    else:
+        dist, min_d = _launch(x3, prototypes)
     return dist.reshape(*x.shape[:-1], p), min_d
 
 
 l2_min_cuda.launches = 0
+l2_min_cuda.backward_calls = 0

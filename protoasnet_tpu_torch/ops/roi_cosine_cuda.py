@@ -1,4 +1,5 @@
-"""Wrapper of the hand-written Hopper ROI-cosine head kernel (forward).
+"""Wrapper of the hand-written Hopper ROI-cosine head kernel, and its
+autograd Function.
 
 ``csrc/roi_cosine.cu`` replaces the Pallas TPU kernel
 ``protoasnet_tpu/ops/pallas_roi.py::roi_cosine_pallas``; its header says

@@ -3,9 +3,12 @@ logging (the JAX package's ``train/agents/base.py`` in torch).
 
 The agent runs on ``config["device"]`` (CUDA unless "cpu" is asked for;
 without a card and without that request it raises). Its checkpoint is the
-port's own: a ``torch.save`` of {epoch, iteration, model, optimizer,
-accumulator, scheduler, best_metric}; ``last.ckpt`` after every epoch,
-``model_best.ckpt`` on the best mean F1, threshold-gated named ones.
+port's own: a ``torch.save`` of {epoch, iteration, model, best_metric} and
+the optimiser state, {optimizer, accumulator, scheduler} for the
+end-to-end agents (``EndToEndTraining``), each stage's optimizer_<stage>
+and accumulator_<stage> and each scheduler_<stage> for the staged ones
+(``StagedTraining``); ``last.ckpt`` after every epoch, ``model_best.ckpt``
+on the best mean F1, threshold-gated named ones.
 """
 
 from __future__ import annotations
@@ -24,10 +27,12 @@ from protoasnet_tpu_torch.models.builder import build_model
 from protoasnet_tpu_torch.models.pretrained import load_pretrained_backbone
 from protoasnet_tpu_torch.tracking.trackers import make_tracker
 from protoasnet_tpu_torch.train.metrics import EpochMetrics
+from protoasnet_tpu_torch.train.optim import GROUPS, STAGES, StageOptimizers
 from protoasnet_tpu_torch.utils.device import resolve_device
 from protoasnet_tpu_torch.utils.io import load_checkpoint, save_checkpoint
 
-__all__ = ["BaseAgent", "resolve_loader_batch_sizes"]
+__all__ = ["BaseAgent", "EndToEndTraining", "StagedTraining",
+           "resolve_loader_batch_sizes", "stage_lrs"]
 
 
 def resolve_loader_batch_sizes(dl_cfg: Dict[str, Any],
@@ -116,9 +121,25 @@ class BaseAgent:
     # ---------------- checkpointing ----------------
 
     def get_state(self) -> Dict[str, Any]:
+        return {"epoch": self.current_epoch,
+                "iteration": self.current_iteration,
+                "model": self.model.state_dict(),
+                **self._optimizer_state(),
+                "best_metric": self.best_metric}
+
+    def set_state(self, st: Dict[str, Any]) -> None:
+        self.model.load_state_dict(st["model"])
+        self._load_optimizer_state(st)
+        self.current_epoch = int(st["epoch"])
+        self.current_iteration = int(st["iteration"])
+        self.best_metric = float(st["best_metric"])
+
+    def _optimizer_state(self) -> Dict[str, Any]:
+        """The optimisers', accumulators' and schedulers' checkpoint
+        entries."""
         raise NotImplementedError
 
-    def set_state(self, state: Dict[str, Any]) -> None:
+    def _load_optimizer_state(self, st: Dict[str, Any]) -> None:
         raise NotImplementedError
 
     def save_checkpoint(self, is_best: bool = False) -> None:
@@ -198,3 +219,84 @@ class BaseAgent:
 
     def finalize(self) -> None:
         self.tracker.finish()
+
+
+def stage_lrs(opt_cfg: Dict[str, Any], cfg_group: Dict[str, str],
+              warm_occurrence: bool) -> Dict[str, Dict[str, float]]:
+    """The staged agents' learning rates {stage: {group: lr}} from the
+    config's ``joint_lrs``, ``warm_lrs`` and ``last_layer_lr``: a group a
+    stage does not name takes its joint lr, else 1e-4; the last stage
+    changes only the readout's. ``warm_occurrence``: the warm stage's
+    occurrence module takes its joint lr (XProtoNet's warm optimiser
+    trains it)."""
+    joint = {cfg_group[k]: float(v)
+             for k, v in opt_cfg.get("joint_lrs", {}).items()}
+    warm = {cfg_group[k]: float(v)
+            for k, v in opt_cfg.get("warm_lrs", {}).items()}
+    base = {g: joint.get(g, 1e-4) for g in GROUPS}
+    warm_lrs = {**base, **warm}
+    if warm_occurrence:
+        warm_lrs["occurrence"] = joint.get("occurrence", base["occurrence"])
+    return {"warm": warm_lrs, "joint": {**base, **joint},
+            "last": {**base, "last_layer": float(
+                opt_cfg.get("last_layer_lr", 1e-4))}}
+
+
+class EndToEndTraining:
+    """The end-to-end agents: one optimiser (``self.optimizer``), its
+    ``self.accumulator``, ``self.scheduler`` and one pair of steps."""
+
+    def _steps_for(self, optimizer_name: str):
+        return self.train_step, self.eval_step
+
+    def _optimizer_state(self) -> Dict[str, Any]:
+        return {"optimizer": self.optimizer.state_dict(),
+                "accumulator": self.accumulator.state_dict(),
+                "scheduler": self.scheduler.state_dict()}
+
+    def _load_optimizer_state(self, st: Dict[str, Any]) -> None:
+        self.optimizer.load_state_dict(st["optimizer"])
+        self.accumulator.load_state_dict(st["accumulator"])
+        self.scheduler.load_state_dict(st["scheduler"])
+
+
+class StagedTraining:
+    """The staged agents: ``self.stages`` (``StageOptimizers``), the steps
+    of each stage in ``self._stage_steps``, ``self.schedulers`` by stage,
+    and ``self._active_stage``, the stage whose learning rates ``_lrs``
+    gives."""
+
+    def _build_stages(self, make_steps, weight_decay: Dict[str, float]
+                      ) -> None:
+        """``self.stages`` and each stage's steps from ``make_steps`` (the
+        model's step factory over ``self.bundle``)."""
+        self.stages = StageOptimizers(
+            self.model, weight_decay,
+            int(self.train_config.get("accumulation_steps", 1)))
+        self._stage_steps = {}
+        for stage in STAGES:
+            train_step, eval_step, self.push_step = make_steps(
+                self.model, self.bundle, self.stages.optimizers[stage],
+                self.stages.accumulators[stage], stage=stage)
+            self._stage_steps[stage] = (train_step, eval_step)
+
+    def _steps_for(self, optimizer_name: str):
+        return self._stage_steps[optimizer_name if optimizer_name in STAGES
+                                 else "joint"]
+
+    def _optimizer_state(self) -> Dict[str, Any]:
+        return {**self.stages.state_dict(),
+                **{f"scheduler_{s}": sch.state_dict()
+                   for s, sch in self.schedulers.items()}}
+
+    def _load_optimizer_state(self, st: Dict[str, Any]) -> None:
+        self.stages.load_state_dict(st)
+        for s, sch in self.schedulers.items():
+            sch.load_state_dict(st[f"scheduler_{s}"])
+
+    def _train_epoch(self, epoch: int, stage: str) -> None:
+        """One training epoch with ``stage``'s optimiser and accumulator."""
+        self._active_stage = stage
+        logging.info(f"stage: {stage}")
+        self.stages.activate(stage)
+        self.run_epoch(epoch, mode="train", optimizer_name=stage)

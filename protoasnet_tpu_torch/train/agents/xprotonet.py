@@ -1,7 +1,13 @@
-"""The end-to-end XProtoNet / ProtoASNet agent (image and video), the JAX
-package's ``XProtoNetE2EAgent`` in torch: one Adam over all parameter
-groups, the 7-term loss, train -> val -> (push -> val_push) -> checkpoint
-every epoch. Registered as ``Video_XProtoNet_e2e`` and ``XProtoNet_e2e``.
+"""XProtoNet / ProtoASNet agents (image and video), the JAX package's
+``train/agents/xprotonet.py`` in torch.
+
+* ``XProtoNetE2EAgent`` (``Video_XProtoNet_e2e``, ``XProtoNet_e2e``): one
+  Adam over all parameter groups, the 7-term loss, train -> val ->
+  (push -> val_push) -> checkpoint every epoch;
+* ``XProtoNetStagedAgent`` (``XProtoNet_Base``): warm -> joint -> push ->
+  last-layer epochs, each stage its own optimiser and accumulator
+  (``train/optim.py::StageOptimizers``), ``ReduceLROnPlateau`` for joint
+  and for last.
 
 Each epoch's metrics go through the host: one device -> host copy per
 step (the JAX package's ``on_device_metrics: false`` path).
@@ -20,14 +26,16 @@ import torch
 from protoasnet_tpu_torch.losses.bundle import LossBundle
 from protoasnet_tpu_torch.models.layers import prototype_class_identity
 from protoasnet_tpu_torch.push.push import push_prototypes
-from protoasnet_tpu_torch.train.agents.base import BaseAgent
+from protoasnet_tpu_torch.train.agents.base import (BaseAgent,
+                                                   EndToEndTraining,
+                                                   StagedTraining, stage_lrs)
 from protoasnet_tpu_torch.train.aggregate import (aggregate_predictions,
                                                   write_csv)
 from protoasnet_tpu_torch.train.optim import (GROUPS, GradAccumulator,
                                               GroupAdam, make_lr_scheduler)
 from protoasnet_tpu_torch.train.steps import make_xprotonet_steps
 
-__all__ = ["XProtoNetE2EAgent"]
+__all__ = ["XProtoNetE2EAgent", "XProtoNetStagedAgent"]
 
 # the config's parameter-group names -> the group labels
 _CFG_GROUP = {
@@ -39,77 +47,24 @@ _CFG_GROUP = {
 }
 
 
-class XProtoNetE2EAgent(BaseAgent):
-    """End-to-end agent: one Adam over all parameters."""
+class _XProtoNetAgentCommon(BaseAgent):
+    """The loss, learning-rate floor, epoch loop and push shared by the
+    end-to-end and the staged agents."""
 
-    def __init__(self, config: Dict[str, Any]):
-        super().__init__(config)
-        opt_cfg = self.train_config["optimizer"]
-        mode = opt_cfg.get("mode", "lr_same")
-        if mode == "lr_same":
-            lr = float(opt_cfg["lr_same"])
-            self.group_lrs = {g: lr for g in GROUPS}
-            wd = {g: 1e-3 for g in GROUPS}  # torch: one group, wd on all
-        elif mode == "lr_disjoint":
-            spec = opt_cfg["lr_disjoint"]
-            self.group_lrs = {_CFG_GROUP[k]: float(v)
-                              for k, v in spec.items()}
-            wd = {"backbone": 1e-3, "add_on": 1e-3, "occurrence": 1e-3}
-        else:
-            raise ValueError(f"optimizer mode {mode!r} not valid")
-        self.base_lrs = dict(self.group_lrs)
-        self.lr = self.group_lrs["prototypes"]
+    min_abs_lr = 0.0
 
-        self.bundle = LossBundle(
+    def _make_bundle(self) -> LossBundle:
+        return LossBundle(
             self.train_config["criterion"],
             num_classes=int(self.model_config["num_classes"]),
             abstain_class=self.abstain_class)
-        self.optimizer = GroupAdam(self.model, weight_decay_by_group=wd)
-        self.accumulator = GradAccumulator(
-            self.optimizer.params,
-            int(self.train_config.get("accumulation_steps", 1)))
-        self.train_step, self.eval_step, self.push_step = \
-            make_xprotonet_steps(self.model, self.bundle, self.optimizer,
-                                 self.accumulator, stage="all")
-        sched_cfg = dict(self.train_config.get(
-            "lr_schedule", {"name": "ReduceLROnPlateau"}))
-        # the scheduler tracks a scale of the base lrs; the config's min_lr
-        # floors the product (torch's absolute min_lr), in _clamp_lr
-        self.min_abs_lr = float(sched_cfg.pop("min_lr", 0.0))
-        self.scheduler = make_lr_scheduler(sched_cfg, initial_lr=1.0)
-        self.load_checkpoint_file(self.model_config.get("checkpoint_path"))
-
-    # ---------------- learning rates ----------------
 
     def _clamp_lr(self, base: float, scale: float) -> float:
-        """base * scale, floored at min_lr; a group with base 0 is not
-        trained at all and gets no floor."""
+        """base * scale, floored at min_lr (torch's absolute floor: the
+        schedulers track a scale of the base lrs); a group with base 0 is
+        not trained at all and gets no floor."""
         lr = base * scale
         return max(lr, self.min_abs_lr) if base > 0 else lr
-
-    def _lrs(self) -> Dict[str, float]:
-        return {g: self._clamp_lr(self.base_lrs[g], self.scheduler.lr)
-                for g in GROUPS}
-
-    # ---------------- checkpoint state ----------------
-
-    def get_state(self) -> Dict[str, Any]:
-        return {"epoch": self.current_epoch,
-                "iteration": self.current_iteration,
-                "model": self.model.state_dict(),
-                "optimizer": self.optimizer.state_dict(),
-                "accumulator": self.accumulator.state_dict(),
-                "scheduler": self.scheduler.state_dict(),
-                "best_metric": self.best_metric}
-
-    def set_state(self, st: Dict[str, Any]) -> None:
-        self.model.load_state_dict(st["model"])
-        self.optimizer.load_state_dict(st["optimizer"])
-        self.accumulator.load_state_dict(st["accumulator"])
-        self.scheduler.load_state_dict(st["scheduler"])
-        self.current_epoch = int(st["epoch"])
-        self.current_iteration = int(st["iteration"])
-        self.best_metric = float(st["best_metric"])
 
     # ---------------- epochs ----------------
 
@@ -148,7 +103,8 @@ class XProtoNetE2EAgent(BaseAgent):
                 summary["diversity_abstain"]
         self.tracker.log(log)
 
-    def run_epoch(self, epoch: int, mode: str = "train"
+    def run_epoch(self, epoch: int, mode: str = "train",
+                  optimizer_name: str = "default"
                   ) -> Tuple[float, float, float]:
         """One pass over the mode's loader: (balanced accuracy, mean F1,
         AUROC)."""
@@ -157,19 +113,19 @@ class XProtoNetE2EAgent(BaseAgent):
         loader.set_epoch(epoch)
         metrics = self.make_metrics()
         is_train = mode == "train"
+        train_step, eval_step = self._steps_for(optimizer_name)
         t0 = time.time()
         pred_log = []
         epoch_steps = len(loader)
         for batch in loader:
             if is_train:
-                m = self.train_step(batch["cine"], batch["target_dev"],
-                                    batch["valid_dev"], self._lrs(),
-                                    generator=self.generator)
+                m = train_step(batch["cine"], batch["target_dev"],
+                               batch["valid_dev"], self._lrs(),
+                               generator=self.generator)
                 self.current_iteration += 1
             else:
-                m = self.eval_step(batch["cine"], batch["target_dev"],
-                                   batch["valid_dev"],
-                                   generator=self.generator)
+                m = eval_step(batch["cine"], batch["target_dev"],
+                              batch["valid_dev"], generator=self.generator)
             # one device -> host copy per step
             loss_terms = {k: float(v) for k, v in m.items()
                           if k.startswith("loss")}
@@ -224,6 +180,48 @@ class XProtoNetE2EAgent(BaseAgent):
             with torch.no_grad():
                 self.model.prototype_vectors.copy_(new_vectors)
 
+
+class XProtoNetE2EAgent(EndToEndTraining, _XProtoNetAgentCommon):
+    """End-to-end agent: one Adam over all parameters."""
+
+    def __init__(self, config: Dict[str, Any]):
+        super().__init__(config)
+        opt_cfg = self.train_config["optimizer"]
+        mode = opt_cfg.get("mode", "lr_same")
+        if mode == "lr_same":
+            lr = float(opt_cfg["lr_same"])
+            self.group_lrs = {g: lr for g in GROUPS}
+            wd = {g: 1e-3 for g in GROUPS}  # torch: one group, wd on all
+        elif mode == "lr_disjoint":
+            spec = opt_cfg["lr_disjoint"]
+            self.group_lrs = {_CFG_GROUP[k]: float(v)
+                              for k, v in spec.items()}
+            wd = {"backbone": 1e-3, "add_on": 1e-3, "occurrence": 1e-3}
+        else:
+            raise ValueError(f"optimizer mode {mode!r} not valid")
+        self.base_lrs = dict(self.group_lrs)
+        self.lr = self.group_lrs["prototypes"]
+
+        self.bundle = self._make_bundle()
+        self.optimizer = GroupAdam(self.model, weight_decay_by_group=wd)
+        self.accumulator = GradAccumulator(
+            self.optimizer.params,
+            int(self.train_config.get("accumulation_steps", 1)))
+        self.train_step, self.eval_step, self.push_step = \
+            make_xprotonet_steps(self.model, self.bundle, self.optimizer,
+                                 self.accumulator, stage="all")
+        sched_cfg = dict(self.train_config.get(
+            "lr_schedule", {"name": "ReduceLROnPlateau"}))
+        # the scheduler tracks a scale of the base lrs; the config's min_lr
+        # floors the product (torch's absolute min_lr), in _clamp_lr
+        self.min_abs_lr = float(sched_cfg.pop("min_lr", 0.0))
+        self.scheduler = make_lr_scheduler(sched_cfg, initial_lr=1.0)
+        self.load_checkpoint_file(self.model_config.get("checkpoint_path"))
+
+    def _lrs(self) -> Dict[str, float]:
+        return {g: self._clamp_lr(self.base_lrs[g], self.scheduler.lr)
+                for g in GROUPS}
+
     def train(self) -> None:
         tc = self.train_config
         for epoch in range(self.current_epoch, int(tc["num_train_epochs"])):
@@ -244,4 +242,64 @@ class XProtoNetE2EAgent(BaseAgent):
                     self.best_metric = mean_f1
                     logging.info(f"new best mean_f1 {mean_f1:.4f}")
                 self.save_checkpoint(is_best=is_best)
+            self.save_checkpoint(is_best=False)
+
+
+class XProtoNetStagedAgent(StagedTraining, _XProtoNetAgentCommon):
+    """Staged agent: warm -> joint -> push -> five last-layer epochs, each
+    stage its own optimiser and accumulator."""
+
+    def __init__(self, config: Dict[str, Any]):
+        super().__init__(config)
+        self.stage_lrs = stage_lrs(self.train_config["optimizer"],
+                                   _CFG_GROUP, warm_occurrence=True)
+        self.lr = self.stage_lrs["joint"]["prototypes"]
+        self.bundle = self._make_bundle()
+        self._build_stages(make_xprotonet_steps,
+                           {"backbone": 1e-3, "add_on": 1e-3,
+                            "occurrence": 1e-3})
+        sched_cfg = dict(self.train_config.get(
+            "lr_schedule", {"name": "ReduceLROnPlateau"}))
+        self.min_abs_lr = float(sched_cfg.pop("min_lr", 0.0))
+        self.schedulers = {s: make_lr_scheduler(sched_cfg, 1.0)
+                           for s in ("joint", "last")}
+        self._active_stage = "joint"
+        self.load_checkpoint_file(self.model_config.get("checkpoint_path"))
+
+    def _lrs(self) -> Dict[str, float]:
+        stage = self._active_stage
+        scale = self.schedulers["last" if stage == "last" else "joint"].lr
+        return {g: self._clamp_lr(self.stage_lrs[stage][g], scale)
+                for g in GROUPS}
+
+    def train(self) -> None:
+        tc = self.train_config
+        warm_epochs = int(tc.get("num_warm_epochs", 0))
+        for epoch in range(self.current_epoch, int(tc["num_train_epochs"])):
+            self.current_epoch = epoch
+            self._train_epoch(epoch, "warm" if epoch < warm_epochs
+                              else "joint")
+            if epoch == warm_epochs:
+                self.push(replace_prototypes=False)
+            _, mean_f1, _ = self.run_epoch(epoch, mode="val")
+            self.save_model_w_condition(f"{epoch}nopush", mean_f1, 0.75)
+            if epoch > warm_epochs and \
+                    tc.get("lr_schedule", {}).get("name") != "StepLR":
+                self.schedulers["joint"].step(mean_f1)
+            if (epoch >= int(tc.get("push_start", 1 << 30))
+                    and epoch % int(tc.get("push_rate", 5)) == 0):
+                self.push(replace_prototypes=True)
+                _, mean_f1, _ = self.run_epoch(epoch, mode="val_push")
+                self.save_model_w_condition(f"{epoch}push", mean_f1, 0.65)
+                for i in range(5):
+                    self._train_epoch(epoch, "last")
+                    _, mean_f1, _ = self.run_epoch(epoch, mode="val_push")
+                    self.save_model_w_condition(f"{epoch}_{i}push", mean_f1,
+                                                0.70)
+                    self.schedulers["last"].step(mean_f1)
+                    is_best = mean_f1 > self.best_metric
+                    if is_best:
+                        self.best_metric = mean_f1
+                        logging.info(f"new best mean_f1 {mean_f1:.4f}")
+                    self.save_checkpoint(is_best=is_best)
             self.save_checkpoint(is_best=False)

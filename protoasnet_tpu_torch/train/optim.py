@@ -15,7 +15,10 @@ The JAX package's ``train/optim.py`` in torch:
   weight decay is 0 for the step, so it keeps zero Adam moments and its
   values bit for bit. Every parameter takes part in every step (a missing
   gradient counts as zero), so Adam's step count is one for all groups,
-  as in optax.
+  as in optax;
+* the staged agents' ``StageOptimizers``: each stage its own ``GroupAdam``
+  and ``GradAccumulator``, as the JAX package's per-stage optimiser states
+  and accumulators.
 """
 
 from __future__ import annotations
@@ -25,9 +28,9 @@ from typing import Any, Dict, Iterable, List, Optional
 import torch
 from torch import nn
 
-__all__ = ["GROUPS", "STAGE_GROUPS", "group_of", "label_params",
-           "GroupAdam", "GradAccumulator", "ReduceLROnPlateau", "StepLR",
-           "make_lr_scheduler"]
+__all__ = ["GROUPS", "STAGE_GROUPS", "STAGES", "group_of", "label_params",
+           "GroupAdam", "GradAccumulator", "StageOptimizers",
+           "ReduceLROnPlateau", "StepLR", "make_lr_scheduler"]
 
 GROUPS = ("backbone", "add_on", "occurrence", "prototypes", "last_layer")
 
@@ -38,6 +41,7 @@ STAGE_GROUPS = {
     "last": ("last_layer",),
     "all": GROUPS,
 }
+STAGES = ("warm", "joint", "last")  # the staged agents' optimisers
 
 _TOP = {"cnn_backbone": "backbone", "features": "backbone",
         "add_on_layers": "add_on", "occurrence_module": "occurrence",
@@ -134,6 +138,54 @@ class GradAccumulator:
         self.count = int(state["count"])
         for p, g in zip(self.params, state["grads"]):
             p.grad = None if g is None else g.to(p.device, p.dtype).clone()
+
+
+class StageOptimizers:
+    """One ``GroupAdam`` and one ``GradAccumulator`` for each of the warm,
+    joint and last stages.
+
+    The micro-gradients sum in the parameters' ``.grad``, which only the
+    active stage's accumulator owns: ``activate`` parks the outgoing
+    stage's partial sums (and count) and puts back the incoming stage's, so
+    a stage switch in the middle of an accumulation neither leaks one
+    stage's gradients into another's step nor drops them.
+    """
+
+    def __init__(self, model: nn.Module,
+                 weight_decay_by_group: Dict[str, float], every: int = 1):
+        self.optimizers = {s: GroupAdam(model, weight_decay_by_group)
+                           for s in STAGES}
+        self.params = self.optimizers[STAGES[0]].params
+        self.accumulators = {s: GradAccumulator(self.params, every)
+                             for s in STAGES}
+        self._empty = {"count": 0, "grads": [None] * len(self.params)}
+        self.parked = {s: self._empty for s in STAGES}
+        self.active: Optional[str] = None
+
+    def activate(self, stage: str) -> None:
+        if stage == self.active:
+            return
+        if self.active is not None:
+            self.parked[self.active] = \
+                self.accumulators[self.active].state_dict()
+        self.accumulators[stage].load_state_dict(self.parked[stage])
+        self.parked[stage] = self._empty
+        self.active = stage
+
+    def state_dict(self) -> Dict[str, Any]:
+        acc = {s: (self.accumulators[s].state_dict() if s == self.active
+                   else self.parked[s]) for s in STAGES}
+        return {**{f"optimizer_{s}": self.optimizers[s].state_dict()
+                   for s in STAGES},
+                **{f"accumulator_{s}": acc[s] for s in STAGES}}
+
+    def load_state_dict(self, state: Dict[str, Any]) -> None:
+        for s in STAGES:
+            self.optimizers[s].load_state_dict(state[f"optimizer_{s}"])
+            self.parked[s] = state[f"accumulator_{s}"]
+        for p in self.params:
+            p.grad = None
+        self.active = None
 
 
 class ReduceLROnPlateau:

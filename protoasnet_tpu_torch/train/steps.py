@@ -1,4 +1,5 @@
-"""Train, eval and push steps of XProtoNet / Video-XProtoNet.
+"""Train, eval and push steps of XProtoNet / Video-XProtoNet and of the
+ProtoPNet baseline.
 
 The JAX package's ``train/steps.py::make_xprotonet_steps`` in torch. One
 train step: the forward of x in train mode (BN statistics of the batch,
@@ -13,6 +14,10 @@ separate-pass semantics, the ``combined=False`` path of
 The eval step uses the running statistics for both forwards; the push step
 is ``push_forward`` in eval mode. The affine draw of a step is ``affine``
 = (angle, scale) when given, else it comes from ``generator``.
+
+``make_protopnet_steps`` is the JAX package's ``make_protopnet_steps``:
+one train-mode forward, CE + ClusterPatch + SeparationPatch + L1(FC), the
+same summed accumulation and masked Adam step.
 """
 
 from __future__ import annotations
@@ -28,7 +33,7 @@ from protoasnet_tpu_torch.losses.losses import (affine_batch,
 from protoasnet_tpu_torch.models.layers import prototype_class_identity
 from protoasnet_tpu_torch.train.optim import GradAccumulator, GroupAdam
 
-__all__ = ["make_xprotonet_steps", "own_bn_stats"]
+__all__ = ["make_xprotonet_steps", "make_protopnet_steps", "own_bn_stats"]
 
 
 class own_bn_stats:
@@ -64,6 +69,17 @@ def _wide(t: torch.Tensor) -> torch.Tensor:
 def _class_identity(model: nn.Module, device) -> torch.Tensor:
     p, k = model.prototype_vectors.shape[0], model.num_classes
     return torch.from_numpy(prototype_class_identity(p, k)).to(device)
+
+
+def _apply(optimizer: GroupAdam, accumulator: GradAccumulator,
+           lrs: Dict[str, float], stage: str) -> bool:
+    """Count one micro-step; on every k-th, the masked Adam step on the
+    summed gradients. Returns whether the optimiser stepped."""
+    applied = accumulator.micro_step()
+    if applied:
+        optimizer.step(lrs, stage)
+        optimizer.zero_grad()
+    return applied
 
 
 def make_xprotonet_steps(
@@ -114,10 +130,7 @@ def make_xprotonet_steps(
                     affine_batch(cine, *aff))
         total, terms = _terms(logits, sim, occ, target, valid, occ_t, aff)
         total.backward()
-        applied = accumulator.micro_step()
-        if applied:
-            optimizer.step(lrs, stage)
-            optimizer.zero_grad()
+        applied = _apply(optimizer, accumulator, lrs, stage)
         return {"loss_all": total.detach(),
                 **{k: v.detach() for k, v in terms.items()},
                 "logits": logits.detach(), "similarities": sim.detach(),
@@ -135,6 +148,54 @@ def make_xprotonet_steps(
         total, terms = _terms(logits, sim, occ, target, valid, occ_t, aff)
         return {"loss_all": total, **terms, "logits": logits,
                 "similarities": sim}
+
+    @torch.no_grad()
+    def push_step(cine):
+        model.eval()
+        return model.push_forward(cine)
+
+    return train_step, eval_step, push_step
+
+
+def make_protopnet_steps(
+    model: nn.Module, bundle: LossBundle, optimizer: GroupAdam,
+    accumulator: GradAccumulator, stage: str = "all",
+) -> Tuple[Callable, Callable, Callable]:
+    """(train_step, eval_step, push_step) over a ``PPNet``.
+
+    train_step(cine, target, valid, lrs) -> metrics: loss_all and the
+        terms (0-d tensors), logits, min_distances, applied
+    eval_step(cine, target, valid) -> metrics
+    push_step(cine) -> (conv_features, distances)
+
+    """
+    class_identity = _class_identity(model, model.prototype_vectors.device)
+
+    def _terms(logits, min_d, target, valid):
+        return bundle.protopnet_terms(
+            _wide(logits), min_d, target,
+            fc_kernel=model.last_layer.Dense_0.weight.T,
+            class_identity=class_identity, valid=valid)
+
+    def train_step(cine, target, valid, lrs: Dict[str, float]
+                   ) -> Dict[str, Any]:
+        model.train()
+        logits, min_d = model(cine)
+        total, terms = _terms(logits, min_d, target, valid)
+        total.backward()
+        applied = _apply(optimizer, accumulator, lrs, stage)
+        return {"loss_all": total.detach(),
+                **{k: v.detach() for k, v in terms.items()},
+                "logits": logits.detach(), "min_distances": min_d.detach(),
+                "applied": applied}
+
+    @torch.no_grad()
+    def eval_step(cine, target, valid) -> Dict[str, Any]:
+        model.eval()
+        logits, min_d = model(cine)
+        total, terms = _terms(logits, min_d, target, valid)
+        return {"loss_all": total, **terms, "logits": logits,
+                "min_distances": min_d}
 
     @torch.no_grad()
     def push_step(cine):

@@ -423,12 +423,83 @@ def test_l2_plan_matches_the_source(dev):
     assert l2_mod.SMEM == l2_mod._lib().l2_min_smem_bytes()
 
 
+@pytest.mark.parametrize("shape", [(20, 49, 30, 512), (3, 70, 7, 63)])
+def test_l2_min_kernel_gradient_matches_backward(dev, shape):
+    """Inputs that require grad go through ``L2MinFunction``: the CUDA
+    forward (one launch) and ``l2_min_backward`` (one call). Its fp32
+    cotangents against ``l2_min_backward`` in float64 on the same inputs
+    and the kernel's distances (1e-5 of max |ref|), and, with no ties in
+    these inputs, against the plain head's float64 autograd; the
+    prototypes' gradient in their (P, 1, 1, D) shape."""
+    from protoasnet_tpu_torch.ops.l2_min import l2_min_backward
+
+    n, s, p, d = shape
+    x, w = _l2_data(shape, dev)
+    g = torch.Generator(device=dev).manual_seed(4)
+    g_dist = torch.randn((n, s, p), device=dev, generator=g)
+    g_min = torch.randn((n, p), device=dev, generator=g)
+    xr, wr = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    launches = l2_min_cuda.launches
+    calls = l2_min_cuda.backward_calls
+    with no_tf32():
+        dist, min_d = l2_min_cuda(xr, wr)
+        ((dist * g_dist).sum() + (min_d * g_min).sum()).backward()
+        ref_x, ref_w = l2_min_backward(x.double(), w.double().reshape(p, d),
+                                       dist.detach(), g_dist.double(),
+                                       g_min.double())
+        x64 = x.double().requires_grad_(True)
+        w64 = w.double().requires_grad_(True)
+        r_dist, r_min = l2_min_torch(x64, w64)
+        ((r_dist * g_dist.double()).sum()
+         + (r_min * g_min.double()).sum()).backward()
+    torch.cuda.synchronize()
+    assert l2_min_cuda.launches == launches + 1
+    assert l2_min_cuda.backward_calls == calls + 1
+    assert xr.grad.dtype == wr.grad.dtype == torch.float32
+    assert wr.grad.shape == w.shape
+    for got, ref in ((xr.grad, ref_x), (wr.grad, ref_w.reshape(w.shape)),
+                     (xr.grad, x64.grad), (wr.grad, w64.grad)):
+        _, rel = max_rel_err(got, ref)
+        assert rel < 1e-5, rel
+
+
+def test_ppnet_train_step_goes_through_the_kernel_and_its_gradient(dev):
+    """A ProtoPNet train step on the card launches the kernel once and
+    runs its backward once; the prototypes move."""
+    from protoasnet_tpu_torch.losses.bundle import LossBundle
+    from protoasnet_tpu_torch.models.builder import build_model
+    from protoasnet_tpu_torch.train.optim import (GROUPS, GradAccumulator,
+                                                  GroupAdam)
+    from protoasnet_tpu_torch.train.steps import make_protopnet_steps
+
+    cfg = {"name": "ProtoPNet", "base_architecture": "resnet18",
+           "prototype_shape": (6, 64, 1, 1), "num_classes": 3,
+           "img_size": 64, "add_on_layers_type": "regular",
+           "dtype": "float32"}
+    model = build_model(cfg)
+    opt = GroupAdam(model, {g: 1e-3 for g in GROUPS})
+    step, _, _ = make_protopnet_steps(
+        model, LossBundle({"CeLoss": {"loss_weight": 1},
+                           "ClusterPatch": {"loss_weight": 0.8},
+                           "SeparationPatch": {"loss_weight": 0.08}},
+                          num_classes=3, abstain_class=False),
+        opt, GradAccumulator(opt.params, 1))
+    before = model.prototype_vectors.detach().clone()
+    launches = l2_min_cuda.launches
+    calls = l2_min_cuda.backward_calls
+    m = step(torch.randn((2, 64, 64, 3), device=dev),
+             torch.tensor([0, 2], device=dev),
+             torch.tensor([True, True], device=dev),
+             {g: 1e-3 for g in GROUPS})
+    torch.cuda.synchronize()
+    assert m["applied"] and torch.isfinite(m["loss_all"])
+    assert l2_min_cuda.launches == launches + 1
+    assert l2_min_cuda.backward_calls == calls + 1
+    assert not torch.equal(model.prototype_vectors, before)
+
+
 def test_l2_min_kernel_refuses_bad_inputs(dev):
     x, w = _l2_data((2, 49, 30, 64), dev)
-    with pytest.raises(RuntimeError, match="forward-only"):
-        l2_min_cuda(x, w.clone().requires_grad_(True))
-    with pytest.raises(RuntimeError, match="forward-only"):
-        l2_min_cuda(x.clone().requires_grad_(True), w)
     with pytest.raises(TypeError, match="computes in float32"):
         l2_min_cuda(x.double(), w)
     with pytest.raises(ValueError, match="must be"):

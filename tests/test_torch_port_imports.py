@@ -54,7 +54,9 @@ def test_port_imports_no_jax():
                  "ops.affine_fast", "losses.losses", "losses.bundle",
                  "train.optim", "train.steps", "train.metrics",
                  "train.aggregate", "train.agents", "train.agents.base",
-                 "train.agents.xprotonet", "data.intervals",
+                 "train.agents.xprotonet", "train.agents.protopnet",
+                 "push.receptive_field", "push.push_protopnet",
+                 "data.intervals",
                  "data.manifest", "data.native", "data.synthetic",
                  "data.dataset", "push.push", "explain.render",
                  "tracking.trackers", "utils.io", "utils.run",
