@@ -79,7 +79,26 @@ raises and the script exits non-zero without printing a result):
    within 1e-5 relative);
 12. images/s of the ProtoPNet fp32 and the image ProtoASNet bf16 train
    micro-steps at batch 20 on a device-resident batch, each with its
-   device-busy share and top device ops.
+   device-busy share and top device ops;
+13. phase 7's run (kept, full width, bf16) explained: ``main`` of
+   ``python -m protoasnet_tpu_torch.explain --explain_locally=true
+   --explain_globally=true --eval_data_type=test`` in process, with
+   ``roi_cosine_cuda``'s launches set to 0 just before and read just after
+   (> 0); the products' similarities and logits against the same agent
+   with the plain head on the same clips (2e-2, the bf16 limit), the
+   sanity report, three panels per test clip; then ``serve export
+   --run_dir`` of the run, the bundle served over HTTP (launches counted
+   again, > 0) and its logits against the agent's eval step and against
+   the plain head on the same clips (2e-2); the seconds of the sweep (2
+   clips: fixed costs), the render and the export, and the bundle's MB;
+   then the sweep at size: ``collect_model_products`` over a test split
+   of its own (288 synthetic videos, four eval batches of 128) with phase
+   7's weights, one launch per batch counted, its seconds and clips/s,
+   the loader alone and the sweep's passes alone over the same split;
+14. phase 9's ProtoPNet run exported and served the same way, with
+   ``l2_min_cuda``'s launches counted (> 0), its logits against the
+   rebuilt agent's eval step (fp32, 1e-3) and against the plain head on
+   the same batch (fp32, 1e-4).
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or of the JAX
@@ -458,6 +477,8 @@ def load_model_config(spec):
 
 
 def _max_diff(a, b) -> float:
+    """Max |a - b| of two tensors or numpy arrays, in fp32."""
+    a, b = torch.as_tensor(a), torch.as_tensor(b)
     return (a.float().cpu() - b.float().cpu()).abs().max().item()
 
 
@@ -575,11 +596,51 @@ def _counters():
     return {"roi_cosine_cuda": roi_cosine_cuda, "l2_min_cuda": l2_min_cuda}
 
 
+def _serve_posts(path, dev, xs):
+    """``server.serve_forever`` on ``path`` (port 0, a thread, warmed, up
+    to 8 samples a batch), one POST per array of ``xs``, then /healthz and
+    /v1/stats; returns (the served logits, the seconds of the POSTs, the
+    health text, the stats). The server has stopped when it returns."""
+    from protoasnet_tpu_torch import server
+
+    ready, stop = threading.Event(), threading.Event()
+    errors = []
+
+    def run():
+        try:
+            server.serve_forever(path, host="127.0.0.1", port=0,
+                                 max_batch=8, max_delay_ms=2.0, warmup=True,
+                                 ready_event=ready, stop_event=stop,
+                                 device=dev)
+        except BaseException as e:  # noqa: BLE001 — reported below
+            errors.append(e)
+            ready.set()
+
+    t = threading.Thread(target=run, name="smoke-server", daemon=True)
+    t.start()
+    try:
+        if not ready.wait(600) or errors:
+            raise RuntimeError(f"server did not start: {errors}")
+        url = f"http://127.0.0.1:{ready.port}"
+        t0 = time.monotonic()
+        served = [_post(url, x) for x in xs]
+        seconds = time.monotonic() - t0
+        with urllib.request.urlopen(url + "/healthz", timeout=30) as r:
+            health = r.read().decode()
+        with urllib.request.urlopen(url + "/v1/stats", timeout=30) as r:
+            stats = json.loads(r.read())
+    finally:
+        stop.set()
+        t.join(120)
+    if t.is_alive() or errors:
+        raise RuntimeError(f"server did not stop cleanly: {errors}")
+    return served, seconds, health, stats
+
+
 def phase_serve(dev, spec, cfg):
     """One main path: bundle -> serve_forever -> POST -> logits. Returns
     the kernels' launch counts of this path (set to 0 at its start, read
     once the server has stopped, before the reference forwards)."""
-    from protoasnet_tpu_torch import server
     from protoasnet_tpu_torch.models.builder import build_model
     from protoasnet_tpu_torch.serve import (load_serving_bundle,
                                             make_serving_fn,
@@ -592,44 +653,14 @@ def phase_serve(dev, spec, cfg):
     with tempfile.TemporaryDirectory() as tmp:
         path = str(Path(tmp) / "bundle.zip")
         save_serving_bundle(path, model, cfg["model"], sample)
-        ready, stop = threading.Event(), threading.Event()
-        errors = []
-
-        def run():
-            try:
-                server.serve_forever(path, host="127.0.0.1", port=0,
-                                     max_batch=8, max_delay_ms=2.0,
-                                     warmup=True, ready_event=ready,
-                                     stop_event=stop, device=dev)
-            except BaseException as e:  # noqa: BLE001 — reported below
-                errors.append(e)
-                ready.set()
-
-        served = []
+        rng = np.random.default_rng(3)
+        xs = [rng.normal(size=(n, *sample)).astype(np.float32)
+              for n in (1, 3, 8, 2)]
         for fn in counters.values():
             fn.launches = 0
-        t = threading.Thread(target=run, name="smoke-server", daemon=True)
-        t.start()
-        try:
-            if not ready.wait(600) or errors:
-                raise RuntimeError(f"server did not start: {errors}")
-            url = f"http://127.0.0.1:{ready.port}"
-            rng = np.random.default_rng(3)
-            t0 = time.monotonic()
-            for n in (1, 3, 8, 2):
-                x = rng.normal(size=(n, *sample)).astype(np.float32)
-                served.append((x, _post(url, x)))
-            serve_s = time.monotonic() - t0
-            with urllib.request.urlopen(url + "/healthz", timeout=30) as r:
-                health = r.read().decode()
-            with urllib.request.urlopen(url + "/v1/stats", timeout=30) as r:
-                stats = json.loads(r.read())
-        finally:
-            stop.set()
-            t.join(120)
+        outs, serve_s, health, stats = _serve_posts(path, dev, xs)
         launches = {name: fn.launches for name, fn in counters.items()}
-        if t.is_alive() or errors:
-            raise RuntimeError(f"server did not stop cleanly: {errors}")
+        served = list(zip(xs, outs))
         direct = load_serving_bundle(path, device=dev)
         worst = 0.0
         k = int(cfg["model"]["num_classes"])
@@ -783,48 +814,47 @@ def _finite_losses(path: Path):
     return len(losses), modes
 
 
-def phase_train(dev, cfg):
+def phase_train(dev, cfg, work: Path):
     """The main training path: ``protoasnet_tpu_torch.main.main`` on 12
     synthetic videos with the full-width bf16 flagship: one train epoch
     (batch 5, two micro-steps, one Adam step), val, a non-replacing and a
     replacing push, val_push and the checkpoints. The ROI kernel's launch
-    and backward counts are set to 0 just before and read just after."""
+    and backward counts are set to 0 just before and read just after. The
+    run stays under ``work`` for phase 13."""
     from protoasnet_tpu_torch.data.synthetic import make_synthetic_dataset
     from protoasnet_tpu_torch.main import main as train_main
     from protoasnet_tpu_torch.models.builder import build_model
     from protoasnet_tpu_torch.ops.roi_cosine_cuda import roi_cosine_cuda
 
-    with tempfile.TemporaryDirectory() as tmp:
-        csv = make_synthetic_dataset(str(Path(tmp) / "data"),
-                                     num_videos=12, seed=3)
-        args = [f"--config_path={CONFIGS / VIDEO['config']}",
-                f"--save_dir={Path(tmp) / 'run'}",
-                f"--data.data_info_file={csv}", *TRAIN_ARGS]
-        roi_cosine_cuda.launches = 0
-        roi_cosine_cuda.backward_calls = 0
-        t0 = time.monotonic()
-        agent = train_main(args)
-        torch.cuda.synchronize()
-        seconds = time.monotonic() - t0
-        launches = roi_cosine_cuda.launches
-        backward_calls = roi_cosine_cuda.backward_calls
-        run = Path(agent.save_dir)
-        for name in ("last.ckpt", "metrics.jsonl",
-                     "img/epoch-0_pushed/prototypes_info.pickle"):
-            if not (run / name).exists():
-                raise AssertionError(f"training run lacks {name}")
-        n_losses, modes = _finite_losses(run / "metrics.jsonl")
-        if not {"train", "val", "val_push"} <= modes:
-            raise AssertionError(f"epoch rows of {sorted(modes)} only")
-        init = build_model(cfg["model"], device="cpu",
-                           seed=int(cfg["train"]["seed"])).state_dict()
-        moved = [k for k, v in agent.model.state_dict().items()
-                 if k.endswith("weight") and not torch.equal(v.cpu(),
-                                                             init[k])]
-        if "cnn_backbone.stem_spatial.weight" not in moved or \
-                "last_layer.Dense_0.weight" not in moved:
-            raise AssertionError(f"the optimiser did not step: {moved[:4]}")
-        renders = len(list((run / "img" / "epoch-0_pushed").glob("*.mp4")))
+    csv = make_synthetic_dataset(str(work / "video_data"), num_videos=12,
+                                 seed=3)
+    args = [f"--config_path={CONFIGS / VIDEO['config']}",
+            f"--save_dir={work / 'video_runs'}",
+            f"--data.data_info_file={csv}", *TRAIN_ARGS]
+    roi_cosine_cuda.launches = 0
+    roi_cosine_cuda.backward_calls = 0
+    t0 = time.monotonic()
+    agent = train_main(args)
+    torch.cuda.synchronize()
+    seconds = time.monotonic() - t0
+    launches = roi_cosine_cuda.launches
+    backward_calls = roi_cosine_cuda.backward_calls
+    run = Path(agent.save_dir)
+    for name in ("last.ckpt", "metrics.jsonl",
+                 "img/epoch-0_pushed/prototypes_info.pickle"):
+        if not (run / name).exists():
+            raise AssertionError(f"training run lacks {name}")
+    n_losses, modes = _finite_losses(run / "metrics.jsonl")
+    if not {"train", "val", "val_push"} <= modes:
+        raise AssertionError(f"epoch rows of {sorted(modes)} only")
+    init = build_model(cfg["model"], device="cpu",
+                       seed=int(cfg["train"]["seed"])).state_dict()
+    moved = [k for k, v in agent.model.state_dict().items()
+             if k.endswith("weight") and not torch.equal(v.cpu(), init[k])]
+    if "cnn_backbone.stem_spatial.weight" not in moved or \
+            "last_layer.Dense_0.weight" not in moved:
+        raise AssertionError(f"the optimiser did not step: {moved[:4]}")
+    renders = len(list((run / "img" / "epoch-0_pushed").glob("*.mp4")))
     if not (launches and backward_calls):
         raise AssertionError(f"training path: roi_cosine_cuda launches "
                              f"{launches}, backward calls {backward_calls}")
@@ -834,7 +864,8 @@ def phase_train(dev, cfg):
         f"tensors moved by the optimiser; {renders} prototype clips "
         f"rendered; roi_cosine_cuda launches {launches}, backward calls "
         f"{backward_calls}")
-    return {"roi_cosine_cuda": launches, "backward_calls": backward_calls}
+    return {"roi_cosine_cuda": launches, "backward_calls": backward_calls,
+            "run": run, "args": args}
 
 
 def head_grad_bound_ms(n, s, p, d, dtype):
@@ -1203,14 +1234,15 @@ def phase_l2_grad(dev):
             "bound_by": bound_by, "library_ms": lib_ms}
 
 
-def phase_train_2d(dev, spec, cfg, counter, tag):
+def phase_train_2d(dev, spec, cfg, counter, tag, work: Path):
     """``protoasnet_tpu_torch.main.main`` on 12 synthetic videos (images
     at 224x224, frames=1) with the full-width model of ``spec``'s config
     and its own batch, cut by ``TRAIN_2D_ARGS``. ``counter``'s launch and
     backward counts are set to 0 just before and read just after. Checks
     the run's files, the push's pictures against the prototypes found,
     finite losses, which groups each stage moved and that the optimiser
-    stepped. Returns (launches, backward calls)."""
+    stepped. Returns (launches, backward calls, the run dir, which stays
+    under ``work``)."""
     import pickle
 
     from protoasnet_tpu_torch.data.synthetic import make_synthetic_dataset
@@ -1219,64 +1251,64 @@ def phase_train_2d(dev, spec, cfg, counter, tag):
     from protoasnet_tpu_torch.train.optim import group_of
 
     ppnet = spec is PPNET
-    with tempfile.TemporaryDirectory() as tmp:
-        csv = make_synthetic_dataset(str(Path(tmp) / "data"),
-                                     num_videos=12, seed=3)
-        args = [f"--config_path={CONFIGS / spec['config']}",
-                f"--save_dir={Path(tmp) / 'run'}",
-                f"--data.data_info_file={csv}", *TRAIN_2D_ARGS[spec["label"]]]
-        counter.launches = 0
-        counter.backward_calls = 0
-        t0 = time.monotonic()
-        agent = train_main(args)
-        torch.cuda.synchronize()
-        seconds = time.monotonic() - t0
-        launches, calls = counter.launches, counter.backward_calls
-        run = Path(agent.save_dir)
-        push = run / "img" / f"epoch-{1 if ppnet else 0}_pushed"
-        files = (["bb.npy", "bb-receptive_field.npy"] if ppnet else []) + [
-            "prototypes_info.pickle"]
-        for name in ["last.ckpt", "metrics.jsonl"] + [
-                str(push.relative_to(run) / f) for f in files]:
-            if not (run / name).exists():
-                raise AssertionError(f"{spec['label']}: training run lacks "
-                                     f"{name}")
-        with open(push / "prototypes_info.pickle", "rb") as f:
-            info = pickle.load(f)
-        found = int((np.asarray(info["prototypes_gts"]) >= 0).sum())
-        pngs = len(list(push.glob("*.png")))
-        if not found or pngs != found:
-            raise AssertionError(f"{spec['label']}: {pngs} pictures for "
-                                 f"{found} prototypes found")
-        n_losses, modes = _finite_losses(run / "metrics.jsonl")
-        if not {"train", "val", "val_push"} <= modes:
-            raise AssertionError(f"{spec['label']}: epoch rows of "
-                                 f"{sorted(modes)} only")
-        init = build_model(cfg["model"], device="cpu",
-                           seed=int(cfg["train"]["seed"])).state_dict()
-        moved = {group_of(k) for k, v in agent.model.named_parameters()
-                 if not torch.equal(v.detach().cpu(), init[k])}
-        if moved != {group_of(k) for k, _ in
-                     agent.model.named_parameters()}:
-            raise AssertionError(f"{spec['label']}: groups moved {moved}")
-        stages = {}
-        if ppnet:
-            # a stage's Adam moments are nonzero exactly for the groups it
-            # moved: frozen groups get no gradient and no weight decay
-            from protoasnet_tpu_torch.utils.io import load_checkpoint
+    key = spec["label"].replace(" ", "_")
+    csv = make_synthetic_dataset(str(work / f"{key}_data"), num_videos=12,
+                                 seed=3)
+    args = [f"--config_path={CONFIGS / spec['config']}",
+            f"--save_dir={work / f'{key}_runs'}",
+            f"--data.data_info_file={csv}", *TRAIN_2D_ARGS[spec["label"]]]
+    counter.launches = 0
+    counter.backward_calls = 0
+    t0 = time.monotonic()
+    agent = train_main(args)
+    torch.cuda.synchronize()
+    seconds = time.monotonic() - t0
+    launches, calls = counter.launches, counter.backward_calls
+    run = Path(agent.save_dir)
+    push = run / "img" / f"epoch-{1 if ppnet else 0}_pushed"
+    files = (["bb.npy", "bb-receptive_field.npy"] if ppnet else []) + [
+        "prototypes_info.pickle"]
+    for name in ["last.ckpt", "metrics.jsonl"] + [
+            str(push.relative_to(run) / f) for f in files]:
+        if not (run / name).exists():
+            raise AssertionError(f"{spec['label']}: training run lacks "
+                                 f"{name}")
+    with open(push / "prototypes_info.pickle", "rb") as f:
+        info = pickle.load(f)
+    found = int((np.asarray(info["prototypes_gts"]) >= 0).sum())
+    pngs = len(list(push.glob("*.png")))
+    if not found or pngs != found:
+        raise AssertionError(f"{spec['label']}: {pngs} pictures for "
+                             f"{found} prototypes found")
+    n_losses, modes = _finite_losses(run / "metrics.jsonl")
+    if not {"train", "val", "val_push"} <= modes:
+        raise AssertionError(f"{spec['label']}: epoch rows of "
+                             f"{sorted(modes)} only")
+    init = build_model(cfg["model"], device="cpu",
+                       seed=int(cfg["train"]["seed"])).state_dict()
+    moved = {group_of(k) for k, v in agent.model.named_parameters()
+             if not torch.equal(v.detach().cpu(), init[k])}
+    if moved != {group_of(k) for k, _ in
+                 agent.model.named_parameters()}:
+        raise AssertionError(f"{spec['label']}: groups moved {moved}")
+    stages = {}
+    if ppnet:
+        # a stage's Adam moments are nonzero exactly for the groups it
+        # moved: frozen groups get no gradient and no weight decay
+        from protoasnet_tpu_torch.utils.io import load_checkpoint
 
-            ckpt = load_checkpoint(str(run / "last.ckpt"))
-            name_of = {id(v): k for k, v in agent.model.named_parameters()}
-            for st in ("warm", "last"):
-                # the state's indices follow the optimiser's parameter order
-                names = [name_of[id(v)]
-                         for v in agent.stages.optimizers[st].params]
-                state = ckpt[f"optimizer_{st}"]["state"]
-                stages[st] = sorted({group_of(names[i]) for i, v in
-                                     state.items() if v["exp_avg"].any()})
-            if stages != {"warm": ["add_on", "prototypes"],
-                          "last": ["last_layer"]}:
-                raise AssertionError(f"ProtoPNet: stages moved {stages}")
+        ckpt = load_checkpoint(str(run / "last.ckpt"))
+        name_of = {id(v): k for k, v in agent.model.named_parameters()}
+        for st in ("warm", "last"):
+            # the state's indices follow the optimiser's parameter order
+            names = [name_of[id(v)]
+                     for v in agent.stages.optimizers[st].params]
+            state = ckpt[f"optimizer_{st}"]["state"]
+            stages[st] = sorted({group_of(names[i]) for i, v in
+                                 state.items() if v["exp_avg"].any()})
+        if stages != {"warm": ["add_on", "prototypes"],
+                      "last": ["last_layer"]}:
+            raise AssertionError(f"ProtoPNet: stages moved {stages}")
     if not (launches and calls):
         raise AssertionError(f"{spec['label']} training path: kernel "
                              f"launches {launches}, backward calls {calls}")
@@ -1289,7 +1321,7 @@ def phase_train_2d(dev, spec, cfg, counter, tag):
         + (f"; Adam moments by stage {stages}" if stages else "")
         + f"; {counter.__name__} launches {launches}, backward calls "
         f"{calls}")
-    return launches, calls
+    return launches, calls, run
 
 
 def phase_ppnet_step_vs_cpu(dev, cfg):
@@ -1341,6 +1373,261 @@ def phase_train_rate_2d(dev, cfgs):
     return out
 
 
+# phases 13-14: from a trained run to explanations and a served bundle;
+# the explain sweep's timed test split: 288 synthetic videos (about 390
+# clips, one per heart cycle: four eval batches of 128) beside 6 train and
+# 6 val videos
+SWEEP_SPLITS = ("train", "val") + ("test",) * 48
+SWEEP_VIDEOS = 6 * len(SWEEP_SPLITS)
+
+
+def _export(run: Path, out: Path, dev):
+    """``python -m protoasnet_tpu_torch.serve export --run_dir`` in
+    process on ``dev``; returns its seconds and the bundle's MB."""
+    from protoasnet_tpu_torch.serve import main as serve_main
+
+    t0 = time.monotonic()
+    serve_main(["export", "--run_dir", str(run), "--out", str(out),
+                "--device", dev.type])
+    return time.monotonic() - t0, out.stat().st_size / 1e6
+
+
+def _eval_logits(agent, x: np.ndarray) -> np.ndarray:
+    """The agent's own eval step on ``x`` (every sample valid; a staged
+    agent's is the joint stage's)."""
+    n = len(x)
+    dev = agent.device
+    eval_step = agent._steps_for("default")[1]
+    m = eval_step(torch.from_numpy(x).to(dev),
+                        torch.zeros(n, dtype=torch.long, device=dev),
+                        torch.ones(n, dtype=torch.bool, device=dev))
+    return m["logits"].float().cpu().numpy()
+
+
+def _plain_served(model, x: np.ndarray) -> np.ndarray:
+    """``model``'s plain-head eval forward on ``x`` padded with zero
+    samples to the server's bucket, as the server runs it; the logits of
+    ``x``'s samples."""
+    from protoasnet_tpu_torch.serve import make_serving_fn
+
+    n = len(x)
+    bucket = next(b for b in (1, 2, 4, 8) if b >= n)
+    xp = np.zeros((bucket, *x.shape[1:]), np.float32)
+    xp[:n] = x
+    model.eval().head_impl = "torch"
+    try:
+        return make_serving_fn(model)(xp)[:n]
+    finally:
+        model.head_impl = None
+
+
+def phase_explain_export(dev, train):
+    """13: the flagship's trained run of phase 7 (full width, bf16) through
+    ``python -m protoasnet_tpu_torch.explain --explain_locally=true
+    --explain_globally=true --eval_data_type=test`` (in process;
+    ``roi_cosine_cuda``'s launches set to 0 just before, > 0 just after),
+    its products against the same agent with the plain head on the same
+    clips (bf16 limit 2e-2), the sanity report and the panels (TOP_K per
+    sample); then ``serve export --run_dir`` and the bundle served over
+    HTTP (launches counted again), its logits against the agent's own
+    eval step and against the plain head on the same clips (2e-2). The
+    test split holds 2 clips: the seconds are fixed costs, and the sweep's
+    rate is timed at size in ``phase_sweep``. Returns (sweep launches,
+    serve launches)."""
+    import pickle
+
+    from protoasnet_tpu_torch.explain.__main__ import main as explain_main
+    from protoasnet_tpu_torch.explain.local import TOP_K
+    from protoasnet_tpu_torch.ops.roi_cosine_cuda import roi_cosine_cuda
+
+    run = train["run"]
+    args = [*train["args"], "--explain_locally=true",
+            "--explain_globally=true", "--eval_data_type=test"]
+    roi_cosine_cuda.launches = 0
+    t0 = time.monotonic()
+    out = explain_main(args)
+    torch.cuda.synchronize()
+    explain_s = time.monotonic() - t0
+    sweep_launches = roi_cosine_cuda.launches
+    if not sweep_launches:
+        raise AssertionError("explain: roi_cosine_cuda never launched")
+    agent, summary = out["agent"], out["local"]
+    if Path(agent.save_dir) != run:
+        raise AssertionError(f"explain ran in {agent.save_dir}, not {run}")
+    with open(run / "explain_test" / "model_products.pickle", "rb") as f:
+        prod = pickle.load(f)
+    n = len(prod["similarities"])
+    on_disk = {p.name.split(".")[0]
+               for p in (run / "explain_test").glob("*_rank*")}
+    if not n or summary["samples"] != n or \
+            summary["panels"] != TOP_K * n or len(on_disk) != TOP_K * n:
+        raise AssertionError(f"explain: {n} samples, summary {summary}, "
+                             f"{len(on_disk)} panels on disk")
+    sanity = summary["sanity"]
+    if not (np.isfinite(sanity["f1_mean"])
+            and sanity["confusion"].sum() == n):
+        raise AssertionError(f"explain: sanity report {sanity}")
+    if not (np.isfinite(prod["logits"]).all()
+            and prod["clips"].shape == (n, *CLIP)):
+        raise AssertionError(f"explain: products {prod['clips'].shape}")
+    # the same clips through the plain head
+    model = agent.model
+    model.head_impl = "torch"
+    sims, logits = [], []
+    with torch.no_grad():
+        for i in range(0, n, 8):
+            x = torch.from_numpy(prod["clips"][i:i + 8]).to(dev)
+            _, dist, _, lg = model.push_forward(x)
+            sims.append(1.0 - dist.float().cpu().numpy())
+            logits.append(lg.float().cpu().numpy())
+    model.head_impl = None
+    d_sim = _max_diff(prod["similarities"], np.concatenate(sims))
+    d_logit = _max_diff(prod["logits"], np.concatenate(logits))
+    if max(d_sim, d_logit) > 2e-2:
+        raise AssertionError(f"explain vs plain head: similarities "
+                             f"{d_sim}, logits {d_logit}")
+
+    bundle = run.parent / "flagship_bundle.zip"
+    roi_cosine_cuda.launches = 0
+    export_s, mb = _export(run, bundle, dev)
+    xs = [prod["clips"][:8]]  # the test clips, up to one bucket
+    served, serve_s, _, _ = _serve_posts(str(bundle), dev, xs)
+    serve_launches = roi_cosine_cuda.launches
+    if not serve_launches:
+        raise AssertionError("served export: roi_cosine_cuda never launched")
+    d_served = _max_diff(served[0], _eval_logits(agent, xs[0]))
+    # bf16: the heads' fp32 outputs differ by ~1e-6, which can flip one
+    # bf16 rounding before the bf16 readout (as in phase 4)
+    d_served_plain = _max_diff(served[0], _plain_served(model, xs[0]))
+    if served[0].shape != (len(xs[0]), 4) or \
+            max(d_served, d_served_plain) > 2e-2:
+        raise AssertionError(f"served export vs eval step {d_served}, vs "
+                             f"plain head {d_served_plain}")
+    log(f"[13 explain+export] python -m protoasnet_tpu_torch.explain on "
+        f"phase 7's run (bf16 flagship, {n} test clips; fixed costs): "
+        f"{explain_s:.2f}s in all; sweep {summary['sweep_s']:.3f}s (data "
+        f"loading included), render {summary['render_s']:.3f}s for "
+        f"{summary['panels']} panels "
+        f"({summary['render_s'] / summary['panels']:.4f} s/panel); sanity "
+        f"mean F1 {sanity['f1_mean']:.4f}; vs plain head: similarities "
+        f"{d_sim:.3e}, logits {d_logit:.3e}; roi_cosine_cuda launches "
+        f"{sweep_launches} (sweep and global push); serve export "
+        f"{export_s:.2f}s, bundle {mb:.1f} MB; served {len(xs[0])} test "
+        f"clips in {serve_s:.2f}s, vs eval step {d_served:.3e}, vs plain "
+        f"head {d_served_plain:.3e}; roi_cosine_cuda launches "
+        f"{serve_launches} (served)")
+    return sweep_launches, serve_launches
+
+
+def phase_sweep(dev, cfg, train, work: Path):
+    """13: the explain sweep (``collect_model_products``) at full width
+    over a test split of real size: ``SWEEP_VIDEOS`` synthetic videos of
+    their own manifest, the agent of phase 7's config with phase 7's
+    ``last.ckpt`` (``--model.checkpoint_path``) and the config's own
+    loader workers. ``roi_cosine_cuda``'s launches are set to 0 just
+    before the sweep and read just after: one per eval batch. Then the
+    loader alone over the same split, and the sweep's passes without the
+    products' host copies. Returns the launches."""
+    from protoasnet_tpu_torch.data.synthetic import make_synthetic_dataset
+    from protoasnet_tpu_torch.explain.local import (collect_model_products,
+                                                    sweep)
+    from protoasnet_tpu_torch.ops.roi_cosine_cuda import roi_cosine_cuda
+    from protoasnet_tpu_torch.train.agents import build_agent
+    from protoasnet_tpu_torch.utils.config import updated_config
+
+    t0 = time.monotonic()
+    csv = make_synthetic_dataset(str(work / "sweep_data"),
+                                 num_videos=SWEEP_VIDEOS, seed=13,
+                                 splits=SWEEP_SPLITS)
+    args = [a for a in train["args"] if not a.startswith(
+        ("--save_dir", "--data.data_info_file", "--data.num_workers"))]
+    config = updated_config([*args, f"--save_dir={work / 'sweep_run'}",
+                             f"--data.data_info_file={csv}",
+                             "--model.checkpoint_path="
+                             f"{train['run'] / 'last.ckpt'}"])
+    (work / "sweep_run").mkdir()
+    agent = build_agent(config)
+    setup_s = time.monotonic() - t0
+    if agent.current_iteration == 0:
+        raise AssertionError("sweep: phase 7's checkpoint did not load")
+    loader = agent.data_loaders["test"]
+    roi_cosine_cuda.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    prod = collect_model_products(agent, "test")
+    torch.cuda.synchronize()
+    seconds = time.monotonic() - t0
+    launches = roi_cosine_cuda.launches
+    n = len(prod["similarities"])
+    per = int(cfg["data"]["eval_batch_size"])
+    if n != len(loader.dataset) or len(loader) != -(-n // per) or \
+            launches != len(loader):
+        raise AssertionError(f"sweep: {n} clips of {len(loader.dataset)}, "
+                             f"{len(loader)} batches, {launches} launches")
+    if prod["clips"].shape != (n, *CLIP) or not all(
+            np.isfinite(prod[k]).all() for k in
+            ("similarities", "occurrence_maps", "logits")):
+        raise AssertionError(f"sweep: products {prod['clips'].shape}")
+    del prod
+    # the loader alone over the same split (gather, copy, device
+    # transform), then the sweep's passes alone (the loader, push_step,
+    # the similarities to the host; no products kept)
+    t0 = time.monotonic()
+    for _ in loader:
+        pass
+    torch.cuda.synchronize()
+    data_s = time.monotonic() - t0
+    t0 = time.monotonic()
+    for _ in sweep(agent, "test"):
+        pass
+    torch.cuda.synchronize()
+    passes_s = time.monotonic() - t0
+    log(f"[13 sweep] collect_model_products, the explain sweep, at full "
+        f"width (bf16, phase 7's weights) over a test split of {n} clips "
+        f"({len(loader)} batches of up to {per}, "
+        f"{loader.num_workers} loader workers): {seconds:.3f}s, "
+        f"{n / seconds:.1f} clips/s, data loading and the clips' copy to "
+        f"the host included; the loader alone over the same split "
+        f"{data_s:.3f}s, the sweep's passes alone (no products kept) "
+        f"{passes_s:.3f}s; set-up (the {SWEEP_VIDEOS} videos written, the "
+        f"agent built, its packed stores and the checkpoint) "
+        f"{setup_s:.2f}s; roi_cosine_cuda launches {launches}")
+    del agent
+    return launches
+
+
+def phase_export_ppnet(dev, run: Path):
+    """14: ProtoPNet's trained run of phase 9 through ``serve export
+    --run_dir`` and served over HTTP, ``l2_min_cuda``'s launches set to 0
+    just before the export and read once the server has stopped (> 0);
+    the served logits against the rebuilt agent's eval step (fp32, 1e-3).
+    Returns the launches."""
+    from protoasnet_tpu_torch.ops.l2_min_cuda import l2_min_cuda
+    from protoasnet_tpu_torch.serve import load_trained_agent
+
+    bundle = run.parent / "ppnet_bundle.zip"
+    l2_min_cuda.launches = 0
+    export_s, mb = _export(run, bundle, dev)
+    x = np.random.default_rng(14).normal(
+        size=(4, *PPNET["sample"])).astype(np.float32)
+    served, serve_s, _, _ = _serve_posts(str(bundle), dev, [x])
+    launches = l2_min_cuda.launches
+    if not launches:
+        raise AssertionError("ProtoPNet export: l2_min_cuda never launched")
+    agent, _ = load_trained_agent(str(run), dev)
+    d = _max_diff(served[0], _eval_logits(agent, x))
+    # fp32: only the heads' summation order differs (as in phase 4)
+    d_plain = _max_diff(served[0], _plain_served(agent.model, x))
+    if served[0].shape != (4, 3) or d > 1e-3 or d_plain > 1e-4:
+        raise AssertionError(f"ProtoPNet served export vs eval step {d}, "
+                             f"vs plain head {d_plain}")
+    log(f"[14 export ProtoPNet] serve export of phase 9's run: "
+        f"{export_s:.2f}s, bundle {mb:.1f} MB; served 4 images in "
+        f"{serve_s:.2f}s, vs eval step {d:.3e}, vs plain head "
+        f"{d_plain:.3e}; l2_min_cuda launches {launches}")
+    return launches
+
+
 def _record(r):
     return {k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                               "bound_by", "library_ms")}
@@ -1351,11 +1638,6 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
               "runs on an NVIDIA GPU", file=sys.stderr)
         return 2
-    from protoasnet_tpu_torch.ops import fused_c2p1d_cuda as fused_mod
-    from protoasnet_tpu_torch.ops import l2_min_cuda as l2_mod
-    from protoasnet_tpu_torch.ops import roi_cosine_cuda as roi_mod
-    from protoasnet_tpu_torch.ops import temporal_conv_cuda as temporal_mod
-
     dev = torch.device("cuda")
     card = card_line()
     log(f"python {sys.version.split()[0]} torch {torch.__version__} cuda "
@@ -1363,6 +1645,17 @@ def main() -> int:
         f"x{torch.cuda.device_count()}; {card}")
     cfgs = {spec["label"]: load_model_config(spec)
             for spec in (VIDEO, PPNET, IMAGE)}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        return _phases(dev, card, cfgs, Path(tmp))
+
+
+def _phases(dev, card: str, cfgs, work: Path) -> int:
+    """Phases 1-14; the training runs stay under ``work`` for 13-14."""
+    from protoasnet_tpu_torch.ops import fused_c2p1d_cuda as fused_mod
+    from protoasnet_tpu_torch.ops import l2_min_cuda as l2_mod
+    from protoasnet_tpu_torch.ops import roi_cosine_cuda as roi_mod
+    from protoasnet_tpu_torch.ops import temporal_conv_cuda as temporal_mod
+
     phase_build()
     head = phase_head(dev, HEAD, "video")
     phase_head(dev, IMAGE_HEAD, "image")
@@ -1389,7 +1682,7 @@ def main() -> int:
         phase_throughput(dev, spec, cfgs[spec["label"]])
     runs, r2p1d_launches = phase_experiments()
     launches.update(r2p1d_launches)
-    train_counts = phase_train(dev, cfgs[VIDEO["label"]])
+    train_counts = phase_train(dev, cfgs[VIDEO["label"]], work)
     launches["roi_cosine_cuda"] += train_counts["roi_cosine_cuda"]
     backward = phase_head_grad(dev)
     phase_train_step_vs_cpu(dev, cfgs[VIDEO["label"]])
@@ -1398,16 +1691,23 @@ def main() -> int:
     # 0 just before it and read just after it
     l2_backward = phase_l2_grad(dev)
     phase_head_grad(dev, IMAGE_TRAIN_HEAD, "8 head grad image")
-    l2_train, l2_calls = phase_train_2d(dev, PPNET, cfgs[PPNET["label"]],
-                                        l2_mod.l2_min_cuda,
-                                        "9 train ProtoPNet")
+    l2_train, l2_calls, ppnet_run = phase_train_2d(
+        dev, PPNET, cfgs[PPNET["label"]], l2_mod.l2_min_cuda,
+        "9 train ProtoPNet", work)
     launches["l2_min_cuda"] += l2_train
-    roi_train, roi_calls = phase_train_2d(dev, IMAGE, cfgs[IMAGE["label"]],
-                                          roi_mod.roi_cosine_cuda,
-                                          "10 train image ProtoASNet")
+    roi_train, roi_calls, _ = phase_train_2d(
+        dev, IMAGE, cfgs[IMAGE["label"]], roi_mod.roi_cosine_cuda,
+        "10 train image ProtoASNet", work)
     launches["roi_cosine_cuda"] += roi_train
     phase_ppnet_step_vs_cpu(dev, cfgs[PPNET["label"]])
     phase_train_rate_2d(dev, cfgs)
+    # from the trained runs to explanations and served bundles: each path
+    # with its kernel's count set to 0 just before it and read just after
+    for count in phase_explain_export(dev, train_counts):
+        launches["roi_cosine_cuda"] += count
+    launches["roi_cosine_cuda"] += phase_sweep(dev, cfgs[VIDEO["label"]],
+                                               train_counts, work)
+    launches["l2_min_cuda"] += phase_export_ppnet(dev, ppnet_run)
     print(card)
     print(json.dumps({"kernels": [
         dict(name="roi_cosine_cuda", route="cuda", source=roi_mod.SOURCE,

@@ -14,17 +14,30 @@ the JAX tree, so each JAX key maps to one state_dict key:
                                 XProtoNet, (P,kh,kw,D) for PPNet
 
 Any key missing on either side, or a shape that disagrees, raises.
+
+The optimiser state of a JAX checkpoint maps the same way: optax's
+``chain(<weight decay>, scale_by_adam)`` state, serialised by flax as
+{"0": {}, "1": {count, mu, nu}} (``{}`` for a stateless link), becomes the
+state of the port's ``GroupAdam`` (``exp_avg`` = mu, ``exp_avg_sq`` = nu,
+``step`` = count, for every parameter), and the JAX package's
+``GradAccumulator`` {acc, count} the port's ``GradAccumulator`` state
+(the partial sums in the parameters' order, none while count is 0). Leaves
+may be numpy arrays or tensors (``utils/io.py`` reads bfloat16 leaves as
+``torch.bfloat16`` tensors).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Iterator, Mapping, Tuple
+from typing import Any, Dict, Iterator, List, Mapping, Tuple, Union
 
 import numpy as np
 import torch
 from torch import nn
 
-__all__ = ["jax_to_state_dict", "load_jax_variables"]
+__all__ = ["jax_to_state_dict", "state_dict_from_jax", "load_jax_variables",
+           "adam_state_from_jax", "accumulator_state_from_jax"]
+
+Array = Union[np.ndarray, torch.Tensor]
 
 
 def _leaves(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()
@@ -33,22 +46,35 @@ def _leaves(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()
         if isinstance(v, Mapping):
             yield from _leaves(v, prefix + (str(k),))
         else:
-            yield prefix + (str(k),), np.asarray(v)
+            yield prefix + (str(k),), (v if isinstance(v, torch.Tensor)
+                                       else np.asarray(v))
 
 
-def _param_key(path: Tuple[str, ...], arr: np.ndarray
-               ) -> Tuple[str, np.ndarray]:
+def _transpose(arr: Array, axes: Tuple[int, ...]) -> Array:
+    if isinstance(arr, torch.Tensor):
+        return arr.permute(*axes)
+    return np.transpose(arr, axes)
+
+
+def _tensor(arr: Array) -> torch.Tensor:
+    """An own, contiguous tensor of ``arr``."""
+    if isinstance(arr, torch.Tensor):
+        return arr.detach().clone().contiguous()
+    return torch.from_numpy(np.array(arr, order="C"))
+
+
+def _param_key(path: Tuple[str, ...], arr: Array) -> Tuple[str, Array]:
     *mods, name = path
     prefix = ".".join(mods)
     if not mods:
         return name, arr
     if name == "kernel":
         if arr.ndim == 5:
-            return f"{prefix}.weight", np.transpose(arr, (4, 3, 0, 1, 2))
+            return f"{prefix}.weight", _transpose(arr, (4, 3, 0, 1, 2))
         if arr.ndim == 4:
-            return f"{prefix}.weight", np.transpose(arr, (3, 2, 0, 1))
+            return f"{prefix}.weight", _transpose(arr, (3, 2, 0, 1))
         if arr.ndim == 2:
-            return f"{prefix}.weight", arr.T
+            return f"{prefix}.weight", _transpose(arr, (1, 0))
         raise ValueError(f"kernel {'/'.join(path)} has rank {arr.ndim}")
     if name == "scale":
         return f"{prefix}.weight", arr
@@ -61,8 +87,8 @@ _STATS = {"mean": "running_mean", "var": "running_var"}
 
 
 def jax_to_state_dict(params: Mapping[str, Any],
-                      batch_stats: Mapping[str, Any]) -> Dict[str, np.ndarray]:
-    sd: Dict[str, np.ndarray] = {}
+                      batch_stats: Mapping[str, Any]) -> Dict[str, Array]:
+    sd: Dict[str, Array] = {}
     for path, arr in _leaves(params):
         key, val = _param_key(path, arr)
         sd[key] = val
@@ -74,10 +100,12 @@ def jax_to_state_dict(params: Mapping[str, Any],
     return sd
 
 
-def load_jax_variables(model: nn.Module, params: Mapping[str, Any],
-                       batch_stats: Mapping[str, Any]) -> nn.Module:
-    """Fill ``model``'s parameters and BN running stats from the JAX trees
-    (in place; returns the model)."""
+def state_dict_from_jax(model: nn.Module, params: Mapping[str, Any],
+                        batch_stats: Mapping[str, Any]
+                        ) -> Dict[str, torch.Tensor]:
+    """``model``'s full state_dict with its parameters and BN running
+    stats from the JAX trees (``num_batches_tracked`` kept), checked key
+    for key and shape for shape."""
     sd = jax_to_state_dict(params, batch_stats)
     target = model.state_dict()
     expected = {k for k in target if not k.endswith("num_batches_tracked")}
@@ -87,11 +115,96 @@ def load_jax_variables(model: nn.Module, params: Mapping[str, Any],
         raise KeyError(f"JAX variables do not match the model: missing "
                        f"{missing[:8]}{'...' if len(missing) > 8 else ''}, "
                        f"extra {extra[:8]}{'...' if len(extra) > 8 else ''}")
+    out = {}
+    for k, cur in target.items():
+        if k not in expected:
+            out[k] = cur
+            continue
+        val = sd[k]
+        if tuple(val.shape) != tuple(cur.shape):
+            raise ValueError(f"{k}: JAX shape {tuple(val.shape)} != "
+                             f"model shape {tuple(cur.shape)}")
+        out[k] = _tensor(val)
+    return out
+
+
+def load_jax_variables(model: nn.Module, params: Mapping[str, Any],
+                       batch_stats: Mapping[str, Any]) -> nn.Module:
+    """Fill ``model``'s parameters and BN running stats from the JAX trees
+    (in place, in the model's dtypes; returns the model)."""
     with torch.no_grad():
-        for k in sorted(expected):
-            val = sd[k]
-            if tuple(val.shape) != tuple(target[k].shape):
-                raise ValueError(f"{k}: JAX shape {tuple(val.shape)} != "
-                                 f"model shape {tuple(target[k].shape)}")
-            target[k].copy_(torch.from_numpy(np.array(val)))  # own copy
+        model.load_state_dict(state_dict_from_jax(model, params,
+                                                  batch_stats))
     return model
+
+
+def _param_names(model: nn.Module, params: List[nn.Parameter]) -> List[str]:
+    name_of = {id(p): k for k, p in model.named_parameters()}
+    return [name_of[id(p)] for p in params]
+
+
+def _by_name(model: nn.Module, params: List[nn.Parameter],
+             tree: Mapping[str, Any], what: str) -> List[torch.Tensor]:
+    """The leaves of a params-shaped JAX tree as tensors in the order of
+    ``params``, each in its parameter's layout."""
+    sd = jax_to_state_dict(tree, {})
+    names = _param_names(model, params)
+    out = []
+    for name, p in zip(names, params):
+        if name not in sd:
+            raise KeyError(f"JAX {what} has no entry for {name}")
+        val = _tensor(sd[name])
+        if tuple(val.shape) != tuple(p.shape):
+            raise ValueError(f"{what} {name}: JAX shape {tuple(val.shape)} "
+                             f"!= parameter shape {tuple(p.shape)}")
+        out.append(val)
+    extra = sorted(set(sd) - set(names))
+    if extra:
+        raise KeyError(f"JAX {what} has entries no parameter takes: "
+                       f"{extra[:8]}")
+    return out
+
+
+def _adam_link(opt_state: Mapping[str, Any]) -> Mapping[str, Any]:
+    """The scale_by_adam state in an optax chain's state: the one link
+    with {count, mu, nu}; every other link must be stateless ({})."""
+    links = [opt_state[k] for k in sorted(opt_state, key=int)]
+    adam = [s for s in links if {"count", "mu", "nu"} <= set(s)]
+    if len(adam) != 1 or any(s for s in links if s is not adam[0]):
+        raise ValueError(f"JAX optimiser state is not chain(<stateless>, "
+                         f"scale_by_adam): links "
+                         f"{[sorted(s) for s in links]}")
+    return adam[0]
+
+
+def adam_state_from_jax(optimizer, model: nn.Module,
+                        opt_state: Mapping[str, Any]) -> Dict[str, Any]:
+    """A ``torch.optim.Adam`` state_dict for ``optimizer`` (a
+    ``GroupAdam`` over ``model``) from the JAX optimiser state: every
+    parameter's moments and optax's step count (empty while count is 0,
+    as a fresh optimiser's)."""
+    adam = _adam_link(opt_state)
+    count = int(np.asarray(adam["count"]))
+    sd = optimizer.state_dict()
+    sd["state"] = {}
+    if count:
+        mu = _by_name(model, optimizer.params, adam["mu"], "Adam mu")
+        nu = _by_name(model, optimizer.params, adam["nu"], "Adam nu")
+        # the state's indices follow the param groups, which is the order
+        # of optimizer.params
+        sd["state"] = {i: {"step": torch.tensor(float(count)),
+                           "exp_avg": m, "exp_avg_sq": v}
+                       for i, (m, v) in enumerate(zip(mu, nu))}
+    return sd
+
+
+def accumulator_state_from_jax(model: nn.Module,
+                               params: List[nn.Parameter],
+                               acc: Mapping[str, Any]) -> Dict[str, Any]:
+    """The port's ``GradAccumulator`` state over ``params`` from the JAX
+    package's {acc, count}: the partial sums in flight, or none when the
+    count is 0."""
+    count = int(np.asarray(acc["count"]))
+    grads = (_by_name(model, params, acc["acc"], "accumulator") if count
+             else [None] * len(params))
+    return {"count": count, "grads": grads}

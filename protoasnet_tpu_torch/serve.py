@@ -12,7 +12,15 @@ XProtoNet) images (H, W, 3):
     logits = fn(x)  # x (b, 32, 112, 112, 3) float32 -> (b, K) float32
     save_serving_bundle("i.zip", ppnet, ppnet_config, (224, 224, 3))
 
+A trained run (the port's own, or the JAX package's: its flax
+``last.ckpt`` or a migrated reference ``.pkl``) becomes a bundle through
+``export``, which rebuilds the run's agent from its training config
+(``config_train.yml``, else another dumped ``config_*.yml``) and its
+``last.ckpt`` (``load_trained_agent``).
+
 CLI:
+    python -m protoasnet_tpu_torch.serve export --run_dir <run> \
+        --out b.zip [--uint8_input] [--device cuda]
     python -m protoasnet_tpu_torch.serve predict --bundle b.zip \
         --input x.npy [--out logits.npy] [--batch 128] [--device cuda]
 """
@@ -32,7 +40,8 @@ from protoasnet_tpu_torch.models.builder import build_model
 from protoasnet_tpu_torch.utils.device import resolve_device
 
 __all__ = ["save_serving_bundle", "load_serving_bundle",
-           "load_serving_bundle_with_spec", "make_serving_fn"]
+           "load_serving_bundle_with_spec", "make_serving_fn",
+           "load_trained_agent", "export_run"]
 
 _FORMAT = "protoasnet_tpu_torch.bundle/1"
 
@@ -120,6 +129,76 @@ def load_serving_bundle(path: str,
     return load_serving_bundle_with_spec(path, device)[0]
 
 
+def load_trained_agent(run_dir: str,
+                       device: Optional[Union[str, torch.device]] = None):
+    """Rebuild the agent of a run directory from its training config and
+    its ``last.ckpt``, whichever package wrote them, on ``device`` (CUDA
+    unless "cpu" is asked for). Returns (agent, per-sample input shape).
+    Raises when no trained checkpoint was loaded.
+
+    The config is the training command's ``config_train.yml``, else the
+    agent's own ``config_agent.yml``, else the first other
+    ``config_*.yml``: explain and eval commands dump theirs into the same
+    directory, possibly with another ``--model.checkpoint_path``. The
+    run's ``last.ckpt``, where there is one, is loaded whatever the
+    config's ``checkpoint_path`` says; without one, that path is."""
+    import glob
+    import os
+
+    import yaml
+
+    from protoasnet_tpu_torch.train.agents import build_agent
+
+    dev = resolve_device(device)
+    cfgs = [os.path.join(run_dir, f"config_{n}.yml")
+            for n in ("train", "agent")]
+    cfgs = [c for c in cfgs if os.path.exists(c)] or sorted(
+        glob.glob(os.path.join(run_dir, "config_*.yml")))
+    if not cfgs:
+        raise FileNotFoundError(f"no dumped config_*.yml under {run_dir}")
+    with open(cfgs[0]) as f:
+        config = yaml.safe_load(f)
+    config["save_dir"] = run_dir
+    last = os.path.join(run_dir, "last.ckpt")
+    if os.path.exists(last):
+        config["model"]["checkpoint_path"] = last
+    config["train"]["save"] = False
+    config["device"] = dev.type
+    agent = build_agent(config)
+    # iteration counts micro-steps: > 0 for any trained checkpoint
+    if agent.current_iteration == 0 and agent.current_epoch == 0:
+        raise RuntimeError(f"no trained checkpoint loaded from {run_dir}")
+    data = config.get("data", {})
+    s = int(data.get("img_size", 112))
+    frames = int(data.get("frames", 32))
+    input_shape = (frames, s, s, 3) if frames > 1 else (s, s, 3)
+    return agent, input_shape
+
+
+def export_run(run_dir: str, out: str, uint8_input: bool = False,
+               device: Optional[Union[str, torch.device]] = None):
+    """Write the bundle of a trained run to ``out``; returns (agent,
+    per-sample input shape)."""
+    agent, input_shape = load_trained_agent(run_dir, device)
+    save_serving_bundle(out, agent.model, agent.model_config, input_shape,
+                        uint8_gray=uint8_input)
+    return agent, input_shape
+
+
+def _export_cmd(args) -> None:
+    import os
+
+    if args.int8:
+        raise SystemExit("--int8: the w8a8 export (quant.py) is not ported "
+                         "yet (ROADMAP.md §1 item 5); no bundle written")
+    _, input_shape = export_run(args.run_dir, args.out, args.uint8_input,
+                                args.device)
+    shown = input_shape[:-1] if args.uint8_input else input_shape
+    print(f"wrote {args.out} ({os.path.getsize(args.out) / 1e6:.1f} MB, "
+          f"input (b, {', '.join(map(str, shown))})"
+          f"{' uint8 gray' if args.uint8_input else ''})")
+
+
 def _predict_cmd(args) -> None:
     fn, _, want_dtype = load_serving_bundle_with_spec(args.bundle,
                                                       args.device)
@@ -147,6 +226,17 @@ def main(argv=None) -> None:
 
     ap = argparse.ArgumentParser(prog="python -m protoasnet_tpu_torch.serve")
     sub = ap.add_subparsers(dest="cmd", required=True)
+    ex = sub.add_parser("export", help="trained run dir -> port bundle")
+    ex.add_argument("--run_dir", required=True)
+    ex.add_argument("--out", required=True)
+    ex.add_argument("--uint8_input", action="store_true",
+                    help="the bundle takes raw grayscale uint8 frames and "
+                         "normalizes on the device")
+    ex.add_argument("--int8", action="store_true",
+                    help="w8a8 backbone: not ported yet, refused")
+    ex.add_argument("--device", default=None,
+                    help="cuda (default) or cpu")
+    ex.set_defaults(fn=_export_cmd)
     pr = sub.add_parser("predict", help="bundle + .npy input -> logits")
     pr.add_argument("--bundle", required=True)
     pr.add_argument("--input", required=True,

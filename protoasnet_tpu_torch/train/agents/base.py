@@ -9,6 +9,12 @@ end-to-end agents (``EndToEndTraining``), each stage's optimizer_<stage>
 and accumulator_<stage> and each scheduler_<stage> for the staged ones
 (``StagedTraining``); ``last.ckpt`` after every epoch, ``model_best.ckpt``
 on the best mean F1, threshold-gated named ones.
+
+``load_checkpoint_file`` also takes the JAX package's runs: its flax
+msgpack ``.ckpt`` (weights, BN statistics, each optimiser's Adam state and
+accumulator, the schedulers' lr scales; ``set_state_from_jax``) and a
+reference checkpoint migrated by it to a ``.pkl`` (weights and BN
+statistics; the optimiser starts fresh, as in the JAX package).
 """
 
 from __future__ import annotations
@@ -24,12 +30,19 @@ import torch
 from protoasnet_tpu_torch.data.dataset import get_as_dataloader
 from protoasnet_tpu_torch.data.manifest import CLASS_LABELS
 from protoasnet_tpu_torch.models.builder import build_model
+from protoasnet_tpu_torch.models.from_jax import (accumulator_state_from_jax,
+                                                  adam_state_from_jax,
+                                                  state_dict_from_jax)
 from protoasnet_tpu_torch.models.pretrained import load_pretrained_backbone
 from protoasnet_tpu_torch.tracking.trackers import make_tracker
 from protoasnet_tpu_torch.train.metrics import EpochMetrics
 from protoasnet_tpu_torch.train.optim import GROUPS, STAGES, StageOptimizers
 from protoasnet_tpu_torch.utils.device import resolve_device
-from protoasnet_tpu_torch.utils.io import load_checkpoint, save_checkpoint
+from protoasnet_tpu_torch.utils.io import (checkpoint_format,
+                                          load_checkpoint,
+                                          load_migrated_pickle,
+                                          read_flax_checkpoint,
+                                          save_checkpoint)
 
 __all__ = ["BaseAgent", "EndToEndTraining", "StagedTraining",
            "resolve_loader_batch_sizes", "stage_lrs"]
@@ -134,6 +147,29 @@ class BaseAgent:
         self.current_iteration = int(st["iteration"])
         self.best_metric = float(st["best_metric"])
 
+    def set_state_from_jax(self, st: Dict[str, Any]) -> None:
+        """The state of a checkpoint the JAX package's agent wrote (its
+        ``get_state`` layout, read by ``read_flax_checkpoint``), converted
+        whole before anything is set. Its ``step`` counts micro-steps, as
+        ``iteration`` does; Adam's step count comes from each optimiser
+        state's own ``count``."""
+        self.set_state({
+            "epoch": st["epoch"], "iteration": st["iteration"],
+            "best_metric": st["best_metric"],
+            "model": state_dict_from_jax(self.model, st["params"],
+                                         st["batch_stats"]),
+            **self._optimizer_state_from_jax(st)})
+
+    def set_state_from_migrated(self, blob: Dict[str, Any]) -> None:
+        """Weights, BN statistics, epoch and iteration of a migrated
+        reference checkpoint; the optimiser keeps its fresh state."""
+        self.set_state({
+            **self.get_state(),
+            "epoch": blob.get("epoch", 0),
+            "iteration": blob.get("iteration", 0),
+            "model": state_dict_from_jax(self.model, blob["params"],
+                                         blob["batch_stats"])})
+
     def _optimizer_state(self) -> Dict[str, Any]:
         """The optimisers', accumulators' and schedulers' checkpoint
         entries."""
@@ -141,6 +177,16 @@ class BaseAgent:
 
     def _load_optimizer_state(self, st: Dict[str, Any]) -> None:
         raise NotImplementedError
+
+    def _optimizer_state_from_jax(self, st: Dict[str, Any]
+                                  ) -> Dict[str, Any]:
+        """``_optimizer_state``'s entries from a JAX checkpoint."""
+        raise NotImplementedError
+
+    def _scheduler_state(self, scheduler, lr_scale) -> Dict[str, Any]:
+        """A scheduler's state with the JAX checkpoint's lr scale (the JAX
+        package keeps nothing else of it)."""
+        return {**scheduler.state_dict(), "lr": float(lr_scale)}
 
     def save_checkpoint(self, is_best: bool = False) -> None:
         if not self.train_config.get("save", True):
@@ -187,13 +233,15 @@ class BaseAgent:
         if not os.path.exists(path):
             logging.info(f"No checkpoint at {path!r}; training from scratch")
             return
-        if path.endswith((".pkl", ".pickle", ".msgpack")):
-            raise ValueError(f"{path}: the port loads only its own "
-                             f"checkpoints (torch.save), not the JAX "
-                             f"package's")
         try:
-            self.set_state(load_checkpoint(path))
-            logging.info(f"Checkpoint loaded from {path} (epoch "
+            fmt = checkpoint_format(path)
+            if fmt == "migrated":
+                self.set_state_from_migrated(load_migrated_pickle(path))
+            elif fmt == "flax":
+                self.set_state_from_jax(read_flax_checkpoint(path))
+            else:
+                self.set_state(load_checkpoint(path))
+            logging.info(f"Checkpoint ({fmt}) loaded from {path} (epoch "
                          f"{self.current_epoch}, iteration "
                          f"{self.current_iteration})")
         except Exception:  # noqa: BLE001 — logged; training starts fresh
@@ -259,6 +307,16 @@ class EndToEndTraining:
         self.accumulator.load_state_dict(st["accumulator"])
         self.scheduler.load_state_dict(st["scheduler"])
 
+    def _optimizer_state_from_jax(self, st: Dict[str, Any]
+                                  ) -> Dict[str, Any]:
+        """{opt_state, acc, lr_scale} of the JAX end-to-end agents."""
+        return {"optimizer": adam_state_from_jax(self.optimizer, self.model,
+                                                 st["opt_state"]),
+                "accumulator": accumulator_state_from_jax(
+                    self.model, self.accumulator.params, st["acc"]),
+                "scheduler": self._scheduler_state(self.scheduler,
+                                                   st["lr_scale"])}
+
 
 class StagedTraining:
     """The staged agents: ``self.stages`` (``StageOptimizers``), the steps
@@ -293,6 +351,26 @@ class StagedTraining:
         self.stages.load_state_dict(st)
         for s, sch in self.schedulers.items():
             sch.load_state_dict(st[f"scheduler_{s}"])
+
+    def _optimizer_state_from_jax(self, st: Dict[str, Any]
+                                  ) -> Dict[str, Any]:
+        """{opt_state_<stage>, acc_<stage>} of the JAX staged agents (an
+        accumulator a checkpoint lacks starts empty), and their lr scales:
+        lr_scale_<scheduler> (XProtoNet) or one lr_scale (ProtoPNet, whose
+        only scheduler is joint's)."""
+        params = self.stages.params
+        out = {}
+        for s in STAGES:
+            out[f"optimizer_{s}"] = adam_state_from_jax(
+                self.stages.optimizers[s], self.model, st[f"opt_state_{s}"])
+            out[f"accumulator_{s}"] = (
+                accumulator_state_from_jax(self.model, params, st[f"acc_{s}"])
+                if f"acc_{s}" in st else
+                {"count": 0, "grads": [None] * len(params)})
+        for s, sch in self.schedulers.items():
+            key = f"lr_scale_{s}" if f"lr_scale_{s}" in st else "lr_scale"
+            out[f"scheduler_{s}"] = self._scheduler_state(sch, st[key])
+        return out
 
     def _train_epoch(self, epoch: int, stage: str) -> None:
         """One training epoch with ``stage``'s optimiser and accumulator."""

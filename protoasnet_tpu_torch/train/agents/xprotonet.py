@@ -11,6 +11,12 @@
 
 Each epoch's metrics go through the host: one device -> host copy per
 step (the JAX package's ``on_device_metrics: false`` path).
+
+Both agents explain: ``explain_local`` (``explain/local.py``: one sweep of
+the push step over the eval split, ranked panels), ``explain_global`` (a
+push that renders the prototypes without replacing them) and
+``get_sim_scores`` / ``load_sim_scores`` (per-sample similarities for
+prototype ranking, ``ranking_prototypes/sim_scores_<mode>_epoch<e>.npz``).
 """
 
 from __future__ import annotations
@@ -179,6 +185,43 @@ class _XProtoNetAgentCommon(BaseAgent):
         if replace_prototypes:
             with torch.no_grad():
                 self.model.prototype_vectors.copy_(new_vectors)
+
+    # ---------------- explanations ----------------
+
+    def get_sim_scores(self, mode: str = "train") -> str:
+        """Write the valid samples' prototype similarities and targets of
+        ``mode``'s loader to ``ranking_prototypes/`` (.npz); returns the
+        path."""
+        from protoasnet_tpu_torch.explain.local import sweep
+
+        sims, targets = [], []
+        for batch, v, sim, _, _ in sweep(self, mode):
+            sims.append(sim)
+            targets.append(np.asarray(batch["target_AS"])[v])
+        out_dir = os.path.join(self.save_dir, "ranking_prototypes")
+        os.makedirs(out_dir, exist_ok=True)
+        path = os.path.join(
+            out_dir, f"sim_scores_{mode}_epoch{self.current_epoch}.npz")
+        np.savez(path, sim_scores=np.concatenate(sims),
+                 targets=np.concatenate(targets))
+        logging.info(f"sim scores written to {out_dir}")
+        return path
+
+    def load_sim_scores(self, epoch: int, mode: str):
+        data = np.load(os.path.join(
+            self.save_dir, "ranking_prototypes",
+            f"sim_scores_{mode}_epoch{epoch}.npz"))
+        return data["sim_scores"], data["targets"]
+
+    def explain_local(self, mode: str = "test") -> Dict[str, Any]:
+        from protoasnet_tpu_torch.explain.local import explain_local
+
+        return explain_local(self, mode=mode)
+
+    def explain_global(self, mode: str = "test") -> None:
+        """The prototypes' own evidence: a push over the train split that
+        renders each prototype's best sample without replacing it."""
+        self.push(replace_prototypes=False)
 
 
 class XProtoNetE2EAgent(EndToEndTraining, _XProtoNetAgentCommon):

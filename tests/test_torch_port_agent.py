@@ -26,6 +26,15 @@ REPO = Path(__file__).resolve().parents[1]
 CONFIG = REPO / "protoasnet_tpu" / "configs" / "ours_protoasnet_video.yml"
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _restore_torch_threads():
+    """This module trains with two threads; give the process back the count
+    it had, since later test modules in the same process depend on it."""
+    threads = torch.get_num_threads()
+    yield
+    torch.set_num_threads(threads)
+
+
 def _args(csv, save_dir, epochs=1):
     return [f"--config_path={CONFIG}", f"--save_dir={save_dir}",
             "--device", "cpu", f"--data.data_info_file={csv}",

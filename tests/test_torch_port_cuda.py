@@ -838,3 +838,102 @@ def test_fused_kernel_fp32_taps_with_bf16_x(dev, shape):
     x, ks, scale, shift, kt = _fused_data(shape, dev, torch.float32)
     assert split_bf16(ks)[1].any() and split_bf16(kt)[1].any()
     _hold_fused((x.bfloat16(), ks, scale, shift, kt))
+
+
+def test_explain_sweep_goes_through_the_kernel(dev):
+    """``collect_model_products`` on the card launches the ROI kernel once
+    per batch, and its products equal the plain head's (fp32)."""
+    from types import SimpleNamespace
+
+    from protoasnet_tpu_torch.explain.local import collect_model_products
+    from protoasnet_tpu_torch.models.builder import build_model
+
+    cfg = {"name": "Video_XProtoNet", "base_architecture": "resnet2p1d_18",
+           "backbone_last_layer_num": -3, "prototype_shape": (8, 64, 1, 1, 1),
+           "num_classes": 4, "img_size": 32, "dtype": "float32"}
+    model = build_model(cfg).eval()
+    rng = np.random.default_rng(21)
+    batches = [{"cine": torch.from_numpy(rng.normal(
+                    size=(3, 8, 32, 32, 3)).astype(np.float32)).to(dev),
+                "valid": np.array([True, True, b == 0]),
+                "target_AS": np.array([0, 1, 2]),
+                "filename": [f"c{b}{i}" for i in range(3)]}
+               for b in range(2)]
+    agent = SimpleNamespace(model=model, push_step=model.push_forward,
+                            data_loaders={"test": batches})
+    before = roi_cosine_cuda.launches
+    with no_tf32():
+        got = collect_model_products(agent, "test")
+        assert roi_cosine_cuda.launches == before + 2
+        model.head_impl = "torch"
+        plain = collect_model_products(agent, "test")
+    assert got["similarities"].shape == (5, 8)
+    for key in ("similarities", "logits", "occurrence_maps"):
+        np.testing.assert_allclose(got[key], plain[key], rtol=1e-5,
+                                   atol=1e-5, err_msg=key)
+
+
+@pytest.mark.parametrize("config, kernel", [
+    ("ours_protoasnet_video.yml", "roi_cosine_cuda"),
+    ("baseline_protopnet.yml", "l2_min_cuda")])
+def test_exported_bundle_served_with_each_head_kernel(dev, tmp_path, config,
+                                                      kernel):
+    """A tiny run trained on the card, exported by ``serve export`` and
+    served by ``server.serve_forever``: the served logits equal the
+    agent's eval step, and the head's kernel launched while serving."""
+    import io
+    import threading
+    import urllib.request
+    from pathlib import Path
+
+    from protoasnet_tpu_torch import server
+    from protoasnet_tpu_torch.data.synthetic import make_synthetic_dataset
+    from protoasnet_tpu_torch.main import main as train_main
+    from protoasnet_tpu_torch.serve import export_run
+
+    counter = {"roi_cosine_cuda": roi_cosine_cuda,
+               "l2_min_cuda": l2_min_cuda}[kernel]
+    video = kernel == "roi_cosine_cuda"
+    csv = make_synthetic_dataset(str(tmp_path / "data"), num_videos=12,
+                                 seed=3)
+    size = (("--data.img_size=32", "--data.frames=8",
+             "--model.prototype_shape=(8, 64, 1, 1, 1)") if video else
+            ("--data.img_size=64", "--model.prototype_shape=(6, 32, 1, 1)"))
+    repo = Path(__file__).resolve().parents[1]
+    agent = train_main([
+        f"--config_path={repo / 'protoasnet_tpu' / 'configs' / config}",
+        f"--save_dir={tmp_path / 'runs'}", f"--data.data_info_file={csv}",
+        *size, "--model.dtype=float32", "--model.pretrained=false",
+        "--train.batch_size=4", "--data.eval_batch_size=8",
+        "--train.num_train_epochs=1", "--train.num_warm_epochs=0",
+        "--train.push_start=99", "--data.num_workers=1"])
+    out = str(tmp_path / "b.zip")
+    agent, shape = export_run(agent.save_dir, out)
+    ready, stop = threading.Event(), threading.Event()
+    counter.launches = 0
+    t = threading.Thread(
+        target=server.serve_forever, args=(out,),
+        kwargs=dict(host="127.0.0.1", port=0, max_batch=4, max_delay_ms=5.0,
+                    warmup=False, ready_event=ready, stop_event=stop,
+                    device=dev), daemon=True)
+    t.start()
+    x = np.random.default_rng(22).normal(size=(4, *shape)).astype(np.float32)
+    try:
+        assert ready.wait(120), "server did not bind"
+        buf = io.BytesIO()
+        np.save(buf, x)
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{ready.port}/v1/predict",
+            data=buf.getvalue(), method="POST")
+        with urllib.request.urlopen(req, timeout=120) as r:
+            served = np.load(io.BytesIO(r.read()))
+    finally:
+        stop.set()
+        t.join(60)
+    assert counter.launches > 0
+    eval_step = agent._steps_for("default")[1]  # staged: joint's
+    m = eval_step(torch.from_numpy(x).to(dev),
+                        torch.zeros(4, dtype=torch.long, device=dev),
+                        torch.ones(4, dtype=torch.bool, device=dev))
+    np.testing.assert_allclose(served, m["logits"].float().cpu().numpy(),
+                               rtol=1e-4, atol=1e-4)

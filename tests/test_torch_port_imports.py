@@ -1,11 +1,14 @@
 """Import hygiene of the port and its device policy.
 
 Every module of ``protoasnet_tpu_torch`` (and ``chip_smoke.py``) imports
-in a fresh interpreter without pulling in JAX or the JAX package; the
-entry points run on CUDA unless the caller asks for the CPU, so without a
-card they raise instead of carrying on on the CPU.
+in a fresh interpreter without pulling in JAX, flax, msgpack,
+scikit-learn or the JAX package (the card's machine has none of them),
+and no source names one in an import statement; the entry points run on
+CUDA unless the caller asks for the CPU, so without a card they raise
+instead of carrying on on the CPU.
 """
 
+import ast
 import json
 import os
 import shutil
@@ -29,8 +32,8 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke
 bad = sorted(m for m in sys.modules
-             if m == "jax" or m.startswith(("jax.", "jaxlib", "flax"))
-             or m == "protoasnet_tpu" or m.startswith("protoasnet_tpu."))
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "msgpack",
+                                    "sklearn", "protoasnet_tpu"))
 print(json.dumps({"modules": names, "bad": bad}))
 """
 
@@ -60,20 +63,32 @@ def test_port_imports_no_jax():
                  "data.manifest", "data.native", "data.synthetic",
                  "data.dataset", "push.push", "explain.render",
                  "tracking.trackers", "utils.io", "utils.run",
-                 "models.pretrained", "main"):
+                 "models.pretrained", "main", "explain.local",
+                 "explain.__main__", "serve", "models.from_jax"):
         assert "protoasnet_tpu_torch." + name in out["modules"], name
     assert out["bad"] == []
 
 
+FORBIDDEN = ("jax", "jaxlib", "flax", "msgpack", "sklearn", "protoasnet_tpu")
+
+
+def _imported_modules(path):
+    """The module of every import statement in ``path`` (at any depth)."""
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
 def test_port_sources_name_no_jax():
+    """No import statement of the port (at module level or inside a
+    function) names a forbidden package; the port's own ``from_jax``
+    module is its weight bridge and imports none of them."""
     for path in [REPO / "chip_smoke.py",
                  *sorted((REPO / "protoasnet_tpu_torch").rglob("*.py"))]:
-        for line in path.read_text().splitlines():
-            code = line.split("#")[0]
-            if code.lstrip().startswith(("import ", "from ")):
-                assert "jax" not in code and "flax" not in code, (path, line)
-                assert "protoasnet_tpu." not in code.replace(
-                    "protoasnet_tpu_torch", ""), (path, line)
+        for mod in _imported_modules(path):
+            assert mod.split(".")[0] not in FORBIDDEN, (path, mod)
 
 
 def _no_card():
@@ -130,6 +145,30 @@ def test_training_entry_point_refuses_without_cuda(tmp_path):
     proc = _run(["-m", "protoasnet_tpu_torch.main", *args], REPO)
     assert proc.returncode != 0
     assert "CUDA is not available" in proc.stderr
+
+
+def test_explain_and_export_refuse_without_cuda(tmp_path):
+    """The explain and export entry points without ``--device cpu``: they
+    raise, called and as commands, before they build anything."""
+    _no_card()
+    from protoasnet_tpu_torch.explain.__main__ import main as explain_main
+    from protoasnet_tpu_torch.serve import load_trained_agent
+
+    cfg = REPO / "protoasnet_tpu" / "configs" / "ours_protoasnet_video.yml"
+    args = [f"--config_path={cfg}", f"--save_dir={tmp_path / 'run'}",
+            "--explain_locally=true"]
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        explain_main(args)
+    assert not (tmp_path / "run").exists()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        load_trained_agent(str(tmp_path))
+    for cmd in (["-m", "protoasnet_tpu_torch.explain", *args],
+                ["-m", "protoasnet_tpu_torch.serve", "export", "--run_dir",
+                 str(tmp_path), "--out", str(tmp_path / "b.zip")]):
+        proc = _run(cmd, REPO)
+        assert proc.returncode != 0
+        assert "CUDA is not available" in proc.stderr
+    assert not (tmp_path / "b.zip").exists()
 
 
 EXPERIMENTS = ["protoasnet_tpu_torch.experiments.temporal_conv",

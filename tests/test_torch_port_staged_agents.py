@@ -46,6 +46,15 @@ AGENT_NAMES = ("Video_XProtoNet_e2e", "XProtoNet_e2e", "XProtoNet_Base",
                "ProtoPNet_Base", "ProtoPNet_e2e")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _restore_torch_threads():
+    """This module trains with two threads; give the process back the count
+    it had, since later test modules in the same process depend on it."""
+    threads = torch.get_num_threads()
+    yield
+    torch.set_num_threads(threads)
+
+
 def _args(config, csv, save_dir, *extra, epochs=2):
     return [f"--config_path={CONFIGS / config}", f"--save_dir={save_dir}",
             "--device", "cpu", f"--data.data_info_file={csv}",
