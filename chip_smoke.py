@@ -1,9 +1,10 @@
 """Chip smoke of the PyTorch/H100 port: the serving paths of the video
 flagship (Video ProtoASNet), the ProtoPNet baseline and the image
 ProtoASNet on one NVIDIA GPU, through the hand-written CUDA kernels, the
-experiment entry points of the R(2+1)D block kernels, and the training
+experiment entry points of the R(2+1)D block kernels, the training
 paths of the video flagship, the ProtoPNet baseline and the image
-ProtoASNet.
+ProtoASNet, and the trained runs explained, exported, served live,
+reloaded and tuned.
 
     python3 chip_smoke.py
 
@@ -98,7 +99,34 @@ raises and the script exits non-zero without printing a result):
 14. phase 9's ProtoPNet run exported and served the same way, with
    ``l2_min_cuda``'s launches counted (> 0), its logits against the
    rebuilt agent's eval step (fp32, 1e-3) and against the plain head on
-   the same batch (fp32, 1e-4).
+   the same batch (fp32, 1e-4);
+15. the trained runs served live (``server.serve_live``, the daemon's
+   default ``max_batch`` of 128, every bucket of its ladder warmed at
+   start and on each reload) and reached through the port's
+   ``ServingClient``: (a) phase 7's run, ``LIVE_CLIPS`` clips in one call
+   of a client whose request ceiling is one clip over ``max_batch`` (the
+   client and the daemon both chunk), the logits within 2e-2 of the
+   rebuilt agent's eval step and of the plain head on the same padded
+   batches and bit-equal to phase 13's bundle on the same batches,
+   ``roi_cosine_cuda`` launches counted (> 0), /v1/spec's buckets the
+   ladder; (b) ``RELOADS`` hot reloads, to a second flagship run (phase
+   7's checkpoint with the readout moved by seeded noise) and back,
+   ending on it, while four threads post requests of ``TRAFFIC_SIZES``
+   clips, which the batcher groups (bucket 128 among them): no request
+   fails or waits ``SLOWEST_S``, every row of a response is within 2e-2
+   of one weight set's logits and of only that one,
+   and all rows of a response of the same set; each reload's generation;
+   the new logits within 2e-2 of the new run's eval step; the reloads'
+   load and warm-up seconds, peak allocated and reserved device memory
+   across them, request p50 before and during; (c) a reload to phase
+   10's image run ends in ``error`` (its input contract differs) and the
+   flagship keeps serving; (d) phase 9's ProtoPNet run served live,
+   ``l2_min_cuda`` launches counted (> 0), within 1e-3 of its eval step
+   and 1e-4 of the plain head; (e) ``python -m protoasnet_tpu_torch.serve
+   tune`` on phase 13's bundle at batches 32, 64, 128 and 256
+   (``--points 4 20``), its rate at 128 beside phase 5's forward rate,
+   then one forward of the bundle at each of those batches with the
+   kernel and with the plain head (bf16, 2e-2; not counted).
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or of the JAX
@@ -107,6 +135,7 @@ package.
 
 from __future__ import annotations
 
+import contextlib
 import io
 import json
 import re
@@ -596,22 +625,18 @@ def _counters():
     return {"roi_cosine_cuda": roi_cosine_cuda, "l2_min_cuda": l2_min_cuda}
 
 
-def _serve_posts(path, dev, xs):
-    """``server.serve_forever`` on ``path`` (port 0, a thread, warmed, up
-    to 8 samples a batch), one POST per array of ``xs``, then /healthz and
-    /v1/stats; returns (the served logits, the seconds of the POSTs, the
-    health text, the stats). The server has stopped when it returns."""
-    from protoasnet_tpu_torch import server
-
+@contextlib.contextmanager
+def _serving(serve, *args, **kwargs):
+    """``serve`` (``server.serve_forever`` or ``server.serve_live``) on
+    port 0 in a thread; yields its URL and stops it on exit, raising if it
+    failed or did not stop."""
     ready, stop = threading.Event(), threading.Event()
     errors = []
 
     def run():
         try:
-            server.serve_forever(path, host="127.0.0.1", port=0,
-                                 max_batch=8, max_delay_ms=2.0, warmup=True,
-                                 ready_event=ready, stop_event=stop,
-                                 device=dev)
+            serve(*args, host="127.0.0.1", port=0, ready_event=ready,
+                  stop_event=stop, **kwargs)
         except BaseException as e:  # noqa: BLE001 — reported below
             errors.append(e)
             ready.set()
@@ -621,7 +646,23 @@ def _serve_posts(path, dev, xs):
     try:
         if not ready.wait(600) or errors:
             raise RuntimeError(f"server did not start: {errors}")
-        url = f"http://127.0.0.1:{ready.port}"
+        yield f"http://127.0.0.1:{ready.port}"
+    finally:
+        stop.set()
+        t.join(120)
+    if t.is_alive() or errors:
+        raise RuntimeError(f"server did not stop cleanly: {errors}")
+
+
+def _serve_posts(path, dev, xs):
+    """``server.serve_forever`` on ``path`` (port 0, a thread, warmed, up
+    to 8 samples a batch), one POST per array of ``xs``, then /healthz and
+    /v1/stats; returns (the served logits, the seconds of the POSTs, the
+    health text, the stats). The server has stopped when it returns."""
+    from protoasnet_tpu_torch import server
+
+    with _serving(server.serve_forever, path, max_batch=8, max_delay_ms=2.0,
+                  warmup=True, device=dev) as url:
         t0 = time.monotonic()
         served = [_post(url, x) for x in xs]
         seconds = time.monotonic() - t0
@@ -629,11 +670,6 @@ def _serve_posts(path, dev, xs):
             health = r.read().decode()
         with urllib.request.urlopen(url + "/v1/stats", timeout=30) as r:
             stats = json.loads(r.read())
-    finally:
-        stop.set()
-        t.join(120)
-    if t.is_alive() or errors:
-        raise RuntimeError(f"server did not stop cleanly: {errors}")
     return served, seconds, health, stats
 
 
@@ -1404,19 +1440,24 @@ def _eval_logits(agent, x: np.ndarray) -> np.ndarray:
     return m["logits"].float().cpu().numpy()
 
 
+def _padded(fn, x: np.ndarray) -> np.ndarray:
+    """``fn`` on ``x`` padded with zero samples to the server's bucket, as
+    the server runs it (every ladder of the smoke's servers is the powers
+    of two up to 128); the outputs of ``x``'s samples."""
+    n = len(x)
+    xp = np.zeros((1 << (n - 1).bit_length(), *x.shape[1:]), np.float32)
+    xp[:n] = x
+    return fn(xp)[:n]
+
+
 def _plain_served(model, x: np.ndarray) -> np.ndarray:
-    """``model``'s plain-head eval forward on ``x`` padded with zero
-    samples to the server's bucket, as the server runs it; the logits of
-    ``x``'s samples."""
+    """``model``'s plain-head eval forward on ``x`` padded to the server's
+    bucket; the logits of ``x``'s samples."""
     from protoasnet_tpu_torch.serve import make_serving_fn
 
-    n = len(x)
-    bucket = next(b for b in (1, 2, 4, 8) if b >= n)
-    xp = np.zeros((bucket, *x.shape[1:]), np.float32)
-    xp[:n] = x
     model.eval().head_impl = "torch"
     try:
-        return make_serving_fn(model)(xp)[:n]
+        return _padded(make_serving_fn(model), x)
     finally:
         model.head_impl = None
 
@@ -1628,6 +1669,415 @@ def phase_export_ppnet(dev, run: Path):
     return launches
 
 
+# phase 15: a trained run served live, reloaded under traffic, tuned
+LIVE_BATCH = 128  # the daemon's default max_batch: buckets 1, 2, ..., 128
+LIVE_CLIPS = LIVE_BATCH + 2
+# (a)'s batches: the client splits at LIVE_BATCH + 1 clips, the daemon
+# the first request into max_batch + 1
+LIVE_CHUNKS = ((0, LIVE_BATCH), (LIVE_BATCH, LIVE_BATCH + 1),
+               (LIVE_BATCH + 1, LIVE_CLIPS))
+# clips per request of each of the four posting threads: the batcher
+# groups whatever is queued, and 72 with any other request fills bucket 128
+TRAFFIC_SIZES = (1, 3, 8, 72)
+TRAFFIC_BEFORE = 300  # requests answered before the first reload
+RELOADS = 5  # to the second run and back, ending on the second
+SLOWEST_S = 10.0  # no request may wait this long (F3 stalled one for 63 s)
+MATCH_TOL = 2e-2  # bf16 logits
+TUNE_BATCHES = "32,64,128,256"
+
+
+def _chunked(fn, x):
+    """``fn`` on ``x`` in (a)'s batches, concatenated."""
+    return np.concatenate([fn(x[a:b]) for a, b in LIVE_CHUNKS])
+
+
+def _reload_target(run: Path, work: Path) -> Path:
+    """A second flagship run under ``work``: ``run``'s configs and its
+    ``last.ckpt`` with the readout's weights moved by seeded noise,
+    written by the port's ``save_checkpoint``."""
+    import shutil
+
+    from protoasnet_tpu_torch.utils.io import load_checkpoint, save_checkpoint
+
+    target = work / "video_runs_reload" / run.name
+    target.mkdir(parents=True)
+    for cfg in run.glob("config_*.yml"):
+        shutil.copy(cfg, target / cfg.name)
+    ckpt = load_checkpoint(str(run / "last.ckpt"))
+    key = "last_layer.Dense_0.weight"
+    w = ckpt["model"][key]
+    g = torch.Generator().manual_seed(15)
+    ckpt["model"][key] = w + torch.randn(w.shape, generator=g).to(w.dtype)
+    save_checkpoint(ckpt, str(target / "last.ckpt"))
+    return target
+
+
+def _traffic(client, xs, stop, records):
+    """Post ``xs[i]`` from thread i until ``stop``; each record is (i,
+    start, end, logits or the exception)."""
+    def post(i):
+        while not stop.is_set():
+            t0 = time.monotonic()
+            try:
+                out = client.predict(xs[i])
+            except Exception as e:  # noqa: BLE001 — checked by the caller
+                out = e
+            records.append((i, t0, time.monotonic(), out))
+
+    threads = [threading.Thread(target=post, args=(i,), name=f"traffic{i}")
+               for i in range(len(xs))]
+    for t in threads:
+        t.start()
+    return threads
+
+
+def _which_set(out, sets):
+    """For each row of ``out``, the one weight set whose logits (``sets``,
+    one array per set) it is within ``MATCH_TOL`` of, and that gap; raises
+    when a row is within it of none or of more than one."""
+    gaps = np.stack([np.abs(out - r).max(axis=1) for r in sets])
+    near = gaps <= MATCH_TOL
+    if not (near.sum(axis=0) == 1).all():
+        raise AssertionError(f"reload: a response's rows are within "
+                             f"{MATCH_TOL} of {near.sum(axis=0)} sets "
+                             f"(gaps {gaps})")
+    return near.argmax(axis=0), gaps.min(axis=0)
+
+
+def _p50(records, keep):
+    """p50 in ms and count of the requests (start, end) that ``keep``
+    holds."""
+    lat = sorted((end - t0) * 1e3 for _, t0, end, _ in records
+                 if keep(t0, end))
+    return (lat[len(lat) // 2] if lat else None), len(lat)
+
+
+def _ms(v):
+    return "none" if v is None else f"{v:.2f} ms"
+
+
+def _gib(v):
+    return f"{v / 2**30:.3f}"
+
+
+def _watch_reload(client, poll_s=0.02):
+    """Poll GET /v1/reload until the reload ends; returns (final status,
+    the monotonic time each state was first seen)."""
+    seen = {}
+    while True:
+        st = client.reload_status()
+        seen.setdefault(st["state"], time.monotonic())
+        if st["state"] in ("serving", "error"):
+            return st, seen
+        time.sleep(poll_s)
+
+
+def _reloads_under_traffic(client, targets, xs):
+    """Post ``xs`` from one thread each until ``TRAFFIC_BEFORE`` requests
+    have answered, then reload to each of ``targets`` in turn (each warmed
+    and swapped before the next), the threads posting throughout. Returns
+    (the records, one (POST, warm-up start, swap, peak allocated, peak
+    reserved) per reload, memory (allocated, reserved) before the first
+    and after the last)."""
+    records, stop = [], threading.Event()
+    threads = _traffic(client, xs, stop, records)
+    try:
+        t0 = time.monotonic()
+        while len(records) < TRAFFIC_BEFORE and time.monotonic() - t0 < 120:
+            time.sleep(0.05)
+        torch.cuda.synchronize()
+        mem0 = (torch.cuda.memory_allocated(), torch.cuda.memory_reserved())
+        windows = []
+        for k, target in enumerate(targets):
+            torch.cuda.reset_peak_memory_stats()
+            t_post = time.monotonic()
+            accepted = client.reload(str(target), wait=False)
+            st, seen = _watch_reload(client)
+            if accepted["generation"] != k or st["state"] != "serving" or \
+                    st["generation"] != k + 1:
+                raise AssertionError(f"reload {k + 1}: accepted {accepted}, "
+                                     f"ended {st}")
+            windows.append((t_post, seen.get("compiling", seen["serving"]),
+                            seen["serving"],
+                            torch.cuda.max_memory_allocated(),
+                            torch.cuda.max_memory_reserved()))
+            time.sleep(0.5)  # requests of one weight set between reloads
+        torch.cuda.synchronize()
+        mem1 = (torch.cuda.memory_allocated(), torch.cuda.memory_reserved())
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(300)
+    if any(t.is_alive() for t in threads):
+        raise AssertionError("reload: a traffic thread did not stop")
+    return records, windows, mem0, mem1
+
+
+def phase_live(dev, train, image_run: Path, work: Path):
+    """15 (a)-(c): phase 7's bf16 flagship run served live
+    (``server.serve_live`` at ``LIVE_BATCH``, reload on, rooted at
+    ``work``) and reached through the port's ``ServingClient``.
+
+    (a) ``LIVE_CLIPS`` clips in one ``predict`` of a client whose request
+    ceiling is ``LIVE_BATCH + 1`` clips: it splits them, the daemon its
+    first request into ``LIVE_CHUNKS``; the logits within 2e-2 of the
+    rebuilt agent's eval step and the plain head on the same padded
+    batches, bit-equal to phase 13's exported bundle on the same batches;
+    /v1/spec's buckets are the ladder. (b) ``RELOADS`` reloads between a
+    second run (``_reload_target``) and phase 7's, ending on the second,
+    while one thread per ``TRAFFIC_SIZES`` posts: the batcher groups the
+    requests; none fails or waits ``SLOWEST_S``; every row of a response
+    is within ``MATCH_TOL`` of one set's logits (each request's alone) and
+    all of a response's rows of one set; each reload's generation; the new
+    logits within 2e-2 of the new run's eval step; no error in /v1/stats;
+    the reloads' seconds (load, warm-up), peak allocated and reserved
+    memory across them, request p50 before and during. (c) a reload to
+    phase 10's image run ends in ``error`` with the contract message, and
+    the current logits keep serving. ``roi_cosine_cuda``'s launches are
+    set to 0 before (a) and before (b) and read after each. Returns
+    (launches of (a), of (b)-(c))."""
+    from protoasnet_tpu_torch import server
+    from protoasnet_tpu_torch.client import ServingClient, ServingError
+    from protoasnet_tpu_torch.ops.roi_cosine_cuda import roi_cosine_cuda
+    from protoasnet_tpu_torch.serve import (load_serving_bundle,
+                                            load_trained_agent)
+
+    run = train["run"]
+    target = _reload_target(run, work)
+    rng = np.random.default_rng(15)
+    x = rng.normal(size=(LIVE_CLIPS, *CLIP)).astype(np.float32)
+    xs = [rng.normal(size=(k, *CLIP)).astype(np.float32)
+          for k in TRAFFIC_SIZES]
+    roi_cosine_cuda.launches = 0
+    t0 = time.monotonic()
+    with _serving(server.serve_live, str(run), max_batch=LIVE_BATCH,
+                  warmup=True, allow_reload=True, reload_root=str(work),
+                  device=dev) as url:
+        start_s = time.monotonic() - t0
+        client = ServingClient(url, timeout_s=300, retries=0)
+        spec = client.spec()
+        # as against a daemon whose body cap holds LIVE_BATCH + 1 clips
+        splitting = ServingClient(url, timeout_s=300, retries=0)
+        splitting._spec = dict(spec, max_request_samples=LIVE_BATCH + 1)
+        t0 = time.monotonic()
+        live = splitting.predict(x)
+        live_s = time.monotonic() - t0
+        launches_a = roi_cosine_cuda.launches
+        if spec["buckets"] != list(server._bucket_ladder(LIVE_BATCH)):
+            raise AssertionError(f"live: /v1/spec buckets {spec['buckets']}")
+        if not launches_a:
+            raise AssertionError("live: roi_cosine_cuda never launched")
+
+        # (b) the reloads under traffic
+        old = [client.predict(xi) for xi in xs]
+        roi_cosine_cuda.launches = 0
+        stats0 = client.stats()
+        targets = [target if k % 2 == 0 else run for k in range(RELOADS)]
+        records, windows, mem0, mem1 = _reloads_under_traffic(
+            client, targets, xs)
+        stats1 = client.stats()
+        new = [client.predict(xi) for xi in xs]
+
+        # (c) a reload whose input contract differs
+        try:
+            client.reload(str(image_run), poll_s=0.01)
+            raise AssertionError("reload to the image run was accepted")
+        except ServingError as e:
+            contract_error = str(e)
+        if "serving contract" not in contract_error:
+            raise AssertionError(f"image run reload: {contract_error}")
+        after_c = client.predict(xs[0])
+        stats = client.stats()
+        launches_b = roi_cosine_cuda.launches
+    if not np.array_equal(after_c, new[0]) or stats["errors"] or \
+            stats["reload"]["generation"] != RELOADS:
+        raise AssertionError(f"after the refused reload: logits "
+                             f"{_max_diff(after_c, new[0])}, stats {stats}")
+    if not launches_b:
+        raise AssertionError("reload: roi_cosine_cuda never launched")
+
+    failed = [r for r in records if isinstance(r[3], Exception)]
+    if failed:
+        raise AssertionError(f"reload: {len(failed)} requests failed, "
+                             f"first {failed[0][3]!r}")
+    slowest = max(end - t0 for _, t0, end, _ in records)
+    if slowest > SLOWEST_S:
+        raise AssertionError(f"reload: a request took {slowest:.3f}s")
+    served_by, worst_gap, exact = [0, 0], 0.0, 0
+    for i, _, _, out in records:
+        which, gaps = _which_set(out, (old[i], new[i]))
+        if len(set(which)) != 1:
+            raise AssertionError(f"reload: a response mixes weight sets "
+                                 f"across its rows: {which}")
+        served_by[which[0]] += 1
+        worst_gap = max(worst_gap, float(gaps.max()))
+        exact += bool(gaps.max() == 0.0)
+    d_moved = max(_max_diff(a, b) for a, b in zip(old, new))
+    requests = stats1["requests"] - stats0["requests"]
+    batches = stats1["batches"] - stats0["batches"]
+    buckets = {b: n - stats0["bucket_counts"].get(b, 0)
+               for b, n in stats1["bucket_counts"].items()}
+    if batches >= requests or not buckets.get(str(LIVE_BATCH)):
+        raise AssertionError(f"reload: the batcher grouped nothing: "
+                             f"{requests} requests in {batches} batches, "
+                             f"buckets {buckets}")
+    t_first = windows[0][0]
+    p50_before, n_before = _p50(records, lambda t0, end: end <= t_first)
+    # during: every request that overlaps a reload, then those over its
+    # load (the agent's build on the reloader thread) and over its warm-up
+    # (the buckets on the side stream) apart
+    p50_during, n_during = _p50(records, lambda t0, end: any(
+        t0 < swap and end > post for post, _, swap, _, _ in windows))
+    p50_load, n_load = _p50(records, lambda t0, end: any(
+        t0 < warm and end > post for post, warm, _, _, _ in windows))
+    p50_warm, n_warm = _p50(records, lambda t0, end: any(
+        t0 < swap and end > warm for _, warm, swap, _, _ in windows))
+    load_s = [warm - post for post, warm, _, _, _ in windows]
+    warm_s = [swap - warm for _, warm, swap, _, _ in windows]
+    peak = max(w[3] for w in windows)
+    peak_reserved = max(w[4] for w in windows)
+
+    # (a)'s references: phase 13's bundle, the eval step, the plain head
+    bundle = load_serving_bundle(str(run.parent / "flagship_bundle.zip"),
+                                 dev)
+    d_bundle = _max_diff(live, _chunked(bundle, x))
+    agent, _ = load_trained_agent(str(run), dev)
+    d_eval = _max_diff(live, _chunked(
+        lambda b: _padded(lambda p: _eval_logits(agent, p), b), x))
+    d_plain = _max_diff(live, _chunked(
+        lambda b: _plain_served(agent.model, b), x))
+    del agent
+    new_agent, _ = load_trained_agent(str(target), dev)
+    d_new_eval = max(_max_diff(n, _padded(
+        lambda p: _eval_logits(new_agent, p), xi)) for n, xi in zip(new, xs))
+    del new_agent
+    if live.shape != (LIVE_CLIPS, 4) or not np.isfinite(live).all() or \
+            d_bundle != 0.0 or max(d_eval, d_plain, d_new_eval) > 2e-2:
+        raise AssertionError(f"live logits {live.shape}: vs bundle "
+                             f"{d_bundle}, eval step {d_eval}, plain head "
+                             f"{d_plain}; reloaded vs its eval step "
+                             f"{d_new_eval}")
+    log(f"[15 live] server.serve_live of phase 7's run (the flagship, "
+        f"max_batch {LIVE_BATCH}, buckets {spec['buckets']}, each warmed): "
+        f"started in {start_s:.2f}s; ServingClient.predict of {LIVE_CLIPS} "
+        f"clips in {live_s:.3f}s (batches {LIVE_CHUNKS}); vs phase 13's "
+        f"bundle {d_bundle:.3e}, vs eval step {d_eval:.3e}, vs plain head "
+        f"{d_plain:.3e}; roi_cosine_cuda launches {launches_a}")
+    log(f"[15 reload] {RELOADS} reloads, to a second run and back, under "
+        f"{len(TRAFFIC_SIZES)} posting threads of {TRAFFIC_SIZES} clips a "
+        f"request: load {', '.join(f'{v:.3f}' for v in load_s)} s, warm-up "
+        f"of {len(spec['buckets'])} buckets "
+        f"{', '.join(f'{v:.3f}' for v in warm_s)} s; device memory before "
+        f"{_gib(mem0[0])} GiB allocated / {_gib(mem0[1])} reserved, peak "
+        f"across the reloads {_gib(peak)} / {_gib(peak_reserved)} (each "
+        f"reload's: {', '.join(_gib(w[3]) for w in windows)} / "
+        f"{', '.join(_gib(w[4]) for w in windows)}), after "
+        f"{_gib(mem1[0])} / {_gib(mem1[1])}; request p50 "
+        f"{_ms(p50_before)} before ({n_before} requests), "
+        f"{_ms(p50_during)} during ({n_during}: {_ms(p50_load)} over the "
+        f"loads ({n_load}), {_ms(p50_warm)} over the warm-ups ({n_warm})); "
+        f"{len(records)} requests in {batches} batches (buckets {buckets}), "
+        f"the slowest {slowest:.3f}s, 0 failed, {served_by[0]} by phase "
+        f"7's and {served_by[1]} by the second run's weights, {exact} "
+        f"bit-equal to that set's lone request, the largest gap "
+        f"{worst_gap:.3e}; the swap moved the logits by "
+        f"up to {d_moved:.3e}, reloaded vs its eval step {d_new_eval:.3e}; "
+        f"reload to the image run refused ({contract_error!r}); "
+        f"roi_cosine_cuda launches {launches_b}")
+    return launches_a, launches_b
+
+
+def phase_live_ppnet(dev, run: Path):
+    """15 (d): phase 9's ProtoPNet run (fp32) served live at
+    ``LIVE_BATCH``, one request of 4 images; ``l2_min_cuda``'s launches
+    set to 0 before and read after (> 0); the logits within 1e-3 of the
+    rebuilt agent's eval step and within 1e-4 of the plain head on the
+    same batch. Returns the launches."""
+    from protoasnet_tpu_torch import server
+    from protoasnet_tpu_torch.client import ServingClient
+    from protoasnet_tpu_torch.ops.l2_min_cuda import l2_min_cuda
+    from protoasnet_tpu_torch.serve import load_trained_agent
+
+    x = np.random.default_rng(16).normal(
+        size=(4, *PPNET["sample"])).astype(np.float32)
+    l2_min_cuda.launches = 0
+    with _serving(server.serve_live, str(run), max_batch=LIVE_BATCH,
+                  warmup=True, device=dev) as url:
+        live = ServingClient(url, timeout_s=300, retries=0).predict(x)
+    launches = l2_min_cuda.launches
+    agent, _ = load_trained_agent(str(run), dev)
+    d = _max_diff(live, _eval_logits(agent, x))
+    # fp32: only the heads' summation order differs (as in phase 4)
+    d_plain = _max_diff(live, _plain_served(agent.model, x))
+    if not launches or live.shape != (4, 3) or d > 1e-3 or d_plain > 1e-4:
+        raise AssertionError(f"ProtoPNet live: launches {launches}, logits "
+                             f"{live.shape} vs eval step {d}, vs plain head "
+                             f"{d_plain}")
+    log(f"[15 live ProtoPNet] server.serve_live of phase 9's run (fp32, "
+        f"max_batch {LIVE_BATCH}): 4 images vs eval step {d:.3e}, vs plain "
+        f"head {d_plain:.3e}; l2_min_cuda launches {launches}")
+    return launches
+
+
+def phase_tune(dev, bundle: Path, forward_128: float):
+    """15 (e): ``python -m protoasnet_tpu_torch.serve tune`` on phase 13's
+    flagship bundle at ``TUNE_BATCHES`` (in process); every candidate has
+    a rate or an error entry and the recommendation is one of them.
+    ``roi_cosine_cuda``'s launches set to 0 before and read after. The
+    rate at 128 is printed beside phase 5's forward rate at 128. Then one
+    forward of the bundle at each candidate with a rate, with the kernel
+    and with the plain head on the same seeded clips (bf16, 2e-2); those
+    launches are not counted. Returns the launches."""
+    from protoasnet_tpu_torch.ops.roi_cosine_cuda import roi_cosine_cuda
+    from protoasnet_tpu_torch.serve import (_device_forward,
+                                            load_bundle_model)
+    from protoasnet_tpu_torch.serve import main as serve_main
+
+    out = io.StringIO()
+    roi_cosine_cuda.launches = 0
+    t0 = time.monotonic()
+    with contextlib.redirect_stdout(out):
+        serve_main(["tune", "--bundle", str(bundle), "--batches",
+                    TUNE_BATCHES, "--points", "4", "20", "--device",
+                    dev.type])
+    seconds = time.monotonic() - t0
+    launches = roi_cosine_cuda.launches
+    lines = out.getvalue().strip().splitlines()
+    for line in lines[:-1]:
+        log(f"[15 tune] {line}")
+    report = json.loads(lines[-1])
+    results = report["results"]
+    want = TUNE_BATCHES.split(",")
+    if sorted(results, key=int) != want or not all(
+            "samples_per_sec" in r or "error" in r for r in results.values()):
+        raise AssertionError(f"tune: {report}")
+    if str(report["recommended_max_batch"]) not in want or not launches:
+        raise AssertionError(f"tune: {report}, launches {launches}")
+    # the tuned forwards against the plain head at each candidate batch
+    model, _, _, uint8_gray = load_bundle_model(str(bundle), dev)
+    forward = _device_forward(model, uint8_gray)
+    g = torch.Generator(device=dev).manual_seed(17)
+    vs_plain = {}
+    with torch.inference_mode():
+        for b in (b for b in want if "samples_per_sec" in results[b]):
+            xb = torch.randn((int(b), *CLIP), generator=g, device=dev)
+            kernel = forward(xb).float()
+            model.head_impl = "torch"
+            vs_plain[b] = (kernel - forward(xb).float()).abs().max().item()
+            model.head_impl = None
+            del xb, kernel
+    del model
+    if not vs_plain or max(vs_plain.values()) > 2e-2:
+        raise AssertionError(f"tune: kernel vs plain head {vs_plain}")
+    at_128 = results["128"].get("samples_per_sec")
+    log(f"[15 tune] serve tune --batches {TUNE_BATCHES} --points 4 20 in "
+        f"{seconds:.1f}s: {json.dumps(report)}; at 128 {at_128} clips/s "
+        f"beside phase 5's forward {forward_128:.1f} clips/s; "
+        f"roi_cosine_cuda launches {launches}; the bundle's forward vs "
+        f"the plain head at each batch {vs_plain}")
+    return launches
+
+
 def _record(r):
     return {k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                               "bound_by", "library_ms")}
@@ -1650,7 +2100,7 @@ def main() -> int:
 
 
 def _phases(dev, card: str, cfgs, work: Path) -> int:
-    """Phases 1-14; the training runs stay under ``work`` for 13-14."""
+    """Phases 1-15; the training runs stay under ``work`` for 13-15."""
     from protoasnet_tpu_torch.ops import fused_c2p1d_cuda as fused_mod
     from protoasnet_tpu_torch.ops import l2_min_cuda as l2_mod
     from protoasnet_tpu_torch.ops import roi_cosine_cuda as roi_mod
@@ -1678,8 +2128,8 @@ def _phases(dev, card: str, cfgs, work: Path) -> int:
             launches[name] += count
     log(f"[4 serve] kernels: {json.dumps(sorted(launches))}; launches on "
         f"the main paths: {launches}")
-    for spec in (VIDEO, PPNET, IMAGE):
-        phase_throughput(dev, spec, cfgs[spec["label"]])
+    rates = {spec["label"]: phase_throughput(dev, spec, cfgs[spec["label"]])
+             for spec in (VIDEO, PPNET, IMAGE)}
     runs, r2p1d_launches = phase_experiments()
     launches.update(r2p1d_launches)
     train_counts = phase_train(dev, cfgs[VIDEO["label"]], work)
@@ -1695,7 +2145,7 @@ def _phases(dev, card: str, cfgs, work: Path) -> int:
         dev, PPNET, cfgs[PPNET["label"]], l2_mod.l2_min_cuda,
         "9 train ProtoPNet", work)
     launches["l2_min_cuda"] += l2_train
-    roi_train, roi_calls, _ = phase_train_2d(
+    roi_train, roi_calls, image_run = phase_train_2d(
         dev, IMAGE, cfgs[IMAGE["label"]], roi_mod.roi_cosine_cuda,
         "10 train image ProtoASNet", work)
     launches["roi_cosine_cuda"] += roi_train
@@ -1708,6 +2158,14 @@ def _phases(dev, card: str, cfgs, work: Path) -> int:
     launches["roi_cosine_cuda"] += phase_sweep(dev, cfgs[VIDEO["label"]],
                                                train_counts, work)
     launches["l2_min_cuda"] += phase_export_ppnet(dev, ppnet_run)
+    # the trained runs served live, reloaded and tuned: each path with its
+    # kernel's count set to 0 just before it and read just after
+    launches["roi_cosine_cuda"] += sum(phase_live(dev, train_counts,
+                                                  image_run, work))
+    launches["l2_min_cuda"] += phase_live_ppnet(dev, ppnet_run)
+    launches["roi_cosine_cuda"] += phase_tune(
+        dev, train_counts["run"].parent / "flagship_bundle.zip",
+        rates[VIDEO["label"]][128])
     print(card)
     print(json.dumps({"kernels": [
         dict(name="roi_cosine_cuda", route="cuda", source=roi_mod.SOURCE,

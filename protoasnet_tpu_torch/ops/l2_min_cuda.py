@@ -32,6 +32,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import threading
 from typing import NamedTuple, Tuple
 
 import torch
@@ -42,6 +43,7 @@ from protoasnet_tpu_torch.ops.l2_min import l2_min_backward, l2_min_torch
 __all__ = ["l2_min_cuda", "L2MinFunction", "plan", "staging_aligned",
            "active_clusters", "SOURCE", "REPLACES"]
 
+_count_lock = threading.Lock()
 SOURCE = "protoasnet_tpu_torch/csrc/l2_min.cu"
 REPLACES = "protoasnet_tpu/ops/pallas_l2.py:45"
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -134,7 +136,8 @@ def _launch(x3: torch.Tensor, prototypes: torch.Tensor
     if err != 0:
         raise RuntimeError("l2_min_cuda launch failed: "
                            + lib.l2_min_error_string(err).decode())
-    l2_min_cuda.launches += 1
+    with _count_lock:  # a reload warms up on a second thread
+        l2_min_cuda.launches += 1
     return dist, min_d
 
 

@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import threading
 from typing import NamedTuple, Tuple
 
 import torch
@@ -40,6 +41,7 @@ __all__ = ["roi_cosine_cuda", "RoiCosineFunction", "plan", "staging_aligned",
            "smem_bytes",
            "active_clusters", "SOURCE", "REPLACES"]
 
+_count_lock = threading.Lock()
 SOURCE = "protoasnet_tpu_torch/csrc/roi_cosine.cu"
 REPLACES = "protoasnet_tpu/ops/pallas_roi.py:58"
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -134,7 +136,8 @@ def _launch(occ2: torch.Tensor, feat2: torch.Tensor,
     if err != 0:
         raise RuntimeError("roi_cosine_cuda launch failed: "
                            + lib.roi_cosine_error_string(err).decode())
-    roi_cosine_cuda.launches += 1
+    with _count_lock:  # a reload warms up on a second thread
+        roi_cosine_cuda.launches += 1
     return roi, sim
 
 

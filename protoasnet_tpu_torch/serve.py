@@ -18,17 +18,25 @@ A trained run (the port's own, or the JAX package's: its flax
 (``config_train.yml``, else another dumped ``config_*.yml``) and its
 ``last.ckpt`` (``load_trained_agent``).
 
+``tune`` sweeps serving batch sizes for a bundle on the card and
+recommends the daemon's ``--max_batch``, with the JAX package's method
+and JSON (``protoasnet_tpu/serve.py::_tune_cmd``).
+
 CLI:
     python -m protoasnet_tpu_torch.serve export --run_dir <run> \
         --out b.zip [--uint8_input] [--device cuda]
     python -m protoasnet_tpu_torch.serve predict --bundle b.zip \
         --input x.npy [--out logits.npy] [--batch 128] [--device cuda]
+    python -m protoasnet_tpu_torch.serve tune --bundle b.zip \
+        [--batches 16,32,64,128,256] [--points 4 20] [--device cuda]
 """
 
 from __future__ import annotations
 
 import io
 import json
+import math
+import time
 import zipfile
 from typing import Any, Callable, Dict, Optional, Sequence, Tuple, Union
 
@@ -40,10 +48,15 @@ from protoasnet_tpu_torch.models.builder import build_model
 from protoasnet_tpu_torch.utils.device import resolve_device
 
 __all__ = ["save_serving_bundle", "load_serving_bundle",
-           "load_serving_bundle_with_spec", "make_serving_fn",
-           "load_trained_agent", "export_run"]
+           "load_serving_bundle_with_spec", "load_bundle_model",
+           "make_serving_fn", "load_trained_agent", "export_run",
+           "recommend", "tune_bundle", "INT8_REFUSAL"]
 
 _FORMAT = "protoasnet_tpu_torch.bundle/1"
+# what --int8 gets from every entry point (export, the live server and
+# its reloads) until the w8a8 path is ported
+INT8_REFUSAL = ("--int8: the w8a8 export (quant.py) is not ported yet "
+                "(ROADMAP.md §1 item 5)")
 
 
 def save_serving_bundle(path: str, model: torch.nn.Module,
@@ -75,32 +88,42 @@ def save_serving_bundle(path: str, model: torch.nn.Module,
         z.writestr("weights.npz", buf.getvalue())
 
 
+def _device_forward(model: torch.nn.Module, uint8_gray: bool = False
+                    ) -> Callable[[torch.Tensor], torch.Tensor]:
+    """A batch already on ``model``'s device, in the bundle's input dtype
+    -> logits on the device; the caller holds the grad mode."""
+
+    def forward(xt: torch.Tensor) -> torch.Tensor:
+        if uint8_gray:
+            xt = normalize(xt.to(torch.float32) * (1.0 / 255.0))
+            xt = xt[..., None].expand(*xt.shape, 3)
+        else:
+            xt = xt.to(torch.float32)
+        return model(xt)[0]
+
+    return forward
+
+
 def make_serving_fn(model: torch.nn.Module, uint8_gray: bool = False
                     ) -> Callable[[np.ndarray], np.ndarray]:
     """numpy clips or images -> numpy float32 logits through ``model`` on
     its device."""
     device = next(model.parameters()).device
+    forward = _device_forward(model, uint8_gray)
 
     def fn(x: np.ndarray) -> np.ndarray:
         with torch.inference_mode():
             xt = torch.from_numpy(np.ascontiguousarray(x)).to(device)
-            if uint8_gray:
-                xt = normalize(xt.to(torch.float32) * (1.0 / 255.0))
-                xt = xt[..., None].expand(*xt.shape, 3)
-            else:
-                xt = xt.to(torch.float32)
-            logits = model(xt)[0]
-            return logits.float().cpu().numpy()
+            return forward(xt).float().cpu().numpy()
 
     return fn
 
 
-def load_serving_bundle_with_spec(
-        path: str, device: Optional[Union[str, torch.device]] = None
-) -> Tuple[Callable, Tuple, Any]:
-    """Load a bundle; returns (fn, input_shape, input_dtype), where
-    input_shape is (None, *per-sample shape) and fn maps a numpy batch to
-    numpy float32 logits on ``device`` (CUDA unless "cpu" is asked for)."""
+def load_bundle_model(path: str,
+                      device: Optional[Union[str, torch.device]] = None
+                      ) -> Tuple[torch.nn.Module, Tuple, Any, bool]:
+    """Load a bundle's model; returns (model in eval mode on ``device``,
+    (None, *per-sample input shape), input dtype, uint8_gray)."""
     dev = resolve_device(device)
     with zipfile.ZipFile(path) as z:
         meta = json.loads(z.read("config.json"))
@@ -119,7 +142,17 @@ def load_serving_bundle_with_spec(
         sample, dtype = sample[:-1], np.dtype(np.uint8)
     else:
         dtype = np.dtype(np.float32)
-    return make_serving_fn(model, uint8_gray), (None, *sample), dtype
+    return model, (None, *sample), dtype, uint8_gray
+
+
+def load_serving_bundle_with_spec(
+        path: str, device: Optional[Union[str, torch.device]] = None
+) -> Tuple[Callable, Tuple, Any]:
+    """Load a bundle; returns (fn, input_shape, input_dtype), where
+    input_shape is (None, *per-sample shape) and fn maps a numpy batch to
+    numpy float32 logits on ``device`` (CUDA unless "cpu" is asked for)."""
+    model, shape, dtype, uint8_gray = load_bundle_model(path, device)
+    return make_serving_fn(model, uint8_gray), shape, dtype
 
 
 def load_serving_bundle(path: str,
@@ -189,8 +222,7 @@ def _export_cmd(args) -> None:
     import os
 
     if args.int8:
-        raise SystemExit("--int8: the w8a8 export (quant.py) is not ported "
-                         "yet (ROADMAP.md §1 item 5); no bundle written")
+        raise SystemExit(f"{INT8_REFUSAL}; no bundle written")
     _, input_shape = export_run(args.run_dir, args.out, args.uint8_input,
                                 args.device)
     shown = input_shape[:-1] if args.uint8_input else input_shape
@@ -221,6 +253,110 @@ def _predict_cmd(args) -> None:
         print(f"{i}: class {k} p={p[k]:.3f}")
 
 
+def recommend(results: Dict[int, dict]
+              ) -> Tuple[Optional[int], Optional[int]]:
+    """(pick, best) among the candidates that have a rate: the best rate's
+    batch, and the smallest batch within 5% of it (it cuts p50 latency at
+    low load for about nothing); (None, None) when none has a rate."""
+    ok = {b: r["samples_per_sec"] for b, r in results.items()
+          if "samples_per_sec" in r}
+    if not ok:
+        return None, None
+    best = max(ok, key=ok.get)
+    return min(b for b in ok if ok[b] >= 0.95 * ok[best]), best
+
+
+def tune_bundle(path: str, batches: Sequence[int],
+                points: Sequence[int] = (4, 20),
+                device: Optional[Union[str, torch.device]] = None) -> dict:
+    """Time the bundle's forward at each candidate batch on ``device``
+    (CUDA unless "cpu" is asked for); returns ``{"results": {b: {...}},
+    "recommended_max_batch": b}``, the JAX package's schema.
+
+    Each candidate runs N forwards of a batch already on the device,
+    chained by a data-dependent zero folded back into the input (``x + (sum
+    of logits > inf)``, so no forward can start before the previous one
+    ends), then reads one scalar back; a two-point fit over N1 and N2
+    cancels the host's fixed costs. ``compile_s`` is the first call's
+    seconds: the kernels' build and load, cuDNN's choice of plans for the
+    shape and the allocator's growth. A candidate that fails (out of
+    memory, say) is recorded by its exception's name."""
+    n1, n2 = (int(p) for p in points)
+    if n2 <= n1 or n1 < 1:
+        raise SystemExit(
+            f"--points must be two increasing call counts >= 1 "
+            f"(got {n1} {n2}); the two-point fit divides by their gap — "
+            f"keep them >= 16 apart so per-call jitter cancels")
+    model, shape, dtype, uint8_gray = load_bundle_model(path, device)
+    forward = _device_forward(model, uint8_gray)
+    dev = next(model.parameters()).device
+    sample_shape = shape[1:]
+    rng = np.random.default_rng(0)
+    results: Dict[int, dict] = {}
+    for b in batches:
+        full = (b,) + sample_shape
+        if np.dtype(dtype) == np.uint8:
+            x0 = rng.integers(0, 256, size=full).astype(np.uint8)
+        else:
+            x0 = rng.normal(size=full).astype(np.float32)
+
+        def chained(n, x):
+            with torch.inference_mode():
+                for _ in range(n):
+                    bump = (forward(x).sum() > math.inf).to(x.dtype)
+                    x = x + bump
+                # one scalar back: the whole batch would drown the fit
+                return float(x.reshape(-1)[0])
+
+        xd = None
+        try:
+            xd = torch.from_numpy(x0).to(dev)
+            t0 = time.perf_counter()
+            chained(1, xd)
+            compile_s = time.perf_counter() - t0
+        except Exception as e:  # noqa: BLE001 — out of memory, say
+            xd = None  # before empty_cache, so its blocks go back too
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+            results[b] = {"error": type(e).__name__}
+            print(f"batch {b:4d}: FAILED ({type(e).__name__})", flush=True)
+            continue
+
+        def run(n):
+            t0 = time.perf_counter()
+            chained(n, xd)
+            return time.perf_counter() - t0
+
+        ta, tb = run(n1), run(n2)
+        per = (tb - ta) / (n2 - n1)
+        if per <= 0:
+            results[b] = {"error": "degenerate fit — timing jitter beat "
+                                   f"the {n2 - n1}-batch signal; rerun "
+                                   "with wider --points"}
+            print(f"batch {b:4d}: DEGENERATE FIT (ta={ta:.2f}s "
+                  f"tb={tb:.2f}s); widen --points", flush=True)
+            continue
+        results[b] = {"ms_per_batch": round(per * 1000, 2),
+                      "samples_per_sec": round(b / per, 1),
+                      "compile_s": round(compile_s, 1)}
+        print(f"batch {b:4d}: {b / per:8.1f} samples/s "
+              f"({per * 1000:7.2f} ms/batch, compile {compile_s:.1f}s)",
+              flush=True)
+    pick, best = recommend(results)
+    if pick is None:
+        print("no candidate succeeded")
+    else:
+        print(f"recommended: --max_batch {pick}"
+              + (f" (peak rate at {best}, within 5%)" if pick != best else ""))
+    return {"results": results, "recommended_max_batch": pick}
+
+
+def _tune_cmd(args) -> None:
+    batches = [int(b) for b in args.batches.split(",")]
+    print(json.dumps(tune_bundle(args.bundle, batches, args.points,
+                                 args.device)))
+
+
 def main(argv=None) -> None:
     import argparse
 
@@ -249,6 +385,28 @@ def main(argv=None) -> None:
     pr.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
     pr.set_defaults(fn=_predict_cmd)
+    tn = sub.add_parser(
+        "tune", help="sweep serving batch sizes on the card; recommends "
+                     "--max_batch for the daemon",
+        description="Times the bundle's forward on a batch already on the "
+                    "device at each candidate size (two-point fit over N1 "
+                    "and N2 chained forwards) and prints one JSON line: "
+                    "{results: {b: {ms_per_batch, samples_per_sec, "
+                    "compile_s} or {error}}, recommended_max_batch}. "
+                    "compile_s is the first call's seconds (the kernels' "
+                    "build and load, cuDNN's choice of plans, the "
+                    "allocator's growth); PyTorch compiles nothing ahead "
+                    "of time.")
+    tn.add_argument("--bundle", required=True)
+    tn.add_argument("--batches", default="16,32,64,128,256",
+                    help="comma-separated candidate batch sizes")
+    tn.add_argument("--points", type=int, nargs=2, default=(4, 20),
+                    metavar=("N1", "N2"),
+                    help="two-point-fit loop lengths (>=16 apart so the "
+                         "signal beats per-call jitter)")
+    tn.add_argument("--device", default=None,
+                    help="cuda (default) or cpu")
+    tn.set_defaults(fn=_tune_cmd)
     args = ap.parse_args(argv)
     args.fn(args)
 

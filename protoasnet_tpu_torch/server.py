@@ -12,15 +12,29 @@ with the same wire protocol, so the JAX package's client works against it:
 - **Delay-window coalescing.** The dispatcher blocks for the first request,
   then drains the queue for at most ``max_delay_ms`` or until ``max_batch``
   samples are gathered.
+- **Hot weight reload** (``--allow_reload``). ``POST /v1/reload`` loads
+  another bundle or run directory and runs every bucket once on a side
+  stream while the old weights keep serving, then swaps the model
+  function in one attribute store (``Reloader``).
+
+A trained run directory (the port's, or the JAX package's) is served live
+with ``--run_dir``: the agent is rebuilt from the run's config and
+``last.ckpt`` and served on one device.
 
 Usage:
     python -m protoasnet_tpu_torch.server --bundle b.zip --port 8300
+    python -m protoasnet_tpu_torch.server --run_dir runs/<run> \
+        [--uint8_input] [--allow_reload --reload_root runs]
     # POST /v1/predict   body = .npy bytes (b, T, H, W[, 3]) for a video
     #                    bundle, (b, H, W[, 3]) for an image bundle -> logits
     # GET  /healthz      liveness
     # GET  /v1/spec      input contract (JSON)
     # GET  /v1/stats     batching/latency counters (JSON)
     # GET  /metrics      the same counters in Prometheus text format
+    # POST /v1/reload    {"target": <bundle or run dir under the reload
+    #                    root>} -> 202, the state before the swap
+    # GET  /v1/reload    the reload state (idle, loading, compiling,
+    #                    serving, error)
 """
 
 from __future__ import annotations
@@ -28,14 +42,16 @@ from __future__ import annotations
 import io
 import json
 import queue
+import socket
 import threading
 import time
+from http.server import ThreadingHTTPServer
 from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-__all__ = ["DynamicBatcher", "BatcherStats", "make_handler", "serve_forever",
-           "prometheus_text"]
+__all__ = ["DynamicBatcher", "BatcherStats", "Reloader", "make_handler",
+           "serve_forever", "serve_live", "prometheus_text"]
 
 
 def prometheus_text(snapshot: dict, healthy: bool) -> str:
@@ -200,10 +216,13 @@ class DynamicBatcher:
     sample_shape: optional per-sample shape; when set, submit() rejects
         mismatched requests instead of letting one bad request poison the
         whole coalesced batch.
+    buckets: the batch sizes a group is padded to (sorted here; the
+        largest must hold ``max_batch``); default ``_bucket_ladder``.
     """
 
     def __init__(self, fn: Callable, max_batch: int = 128,
                  max_delay_ms: float = 5.0,
+                 buckets: Optional[Sequence[int]] = None,
                  dtype=np.float32,
                  sample_shape: Optional[Sequence[int]] = None):
         if max_batch < 1:
@@ -213,7 +232,11 @@ class DynamicBatcher:
         self.sample_shape = tuple(sample_shape) if sample_shape else None
         self.max_batch = int(max_batch)
         self.max_delay_s = float(max_delay_ms) / 1e3
-        self.buckets = _bucket_ladder(self.max_batch)
+        self.buckets = tuple(sorted(int(b) for b in buckets)) if buckets \
+            else _bucket_ladder(self.max_batch)
+        if self.buckets[-1] < self.max_batch:
+            raise ValueError(f"largest bucket {self.buckets[-1]} < "
+                             f"max_batch {self.max_batch}")
         self.stats = BatcherStats()
         self._q: "queue.Queue[Optional[_Pending]]" = queue.Queue()
         self._closed = False
@@ -307,15 +330,17 @@ class DynamicBatcher:
 
     # -- dispatch thread ----------------------------------------------------
 
-    def warmup(self) -> None:
-        """Run every bucket once up front (one fn call per bucket) so no
-        live request pays the kernel build, cuDNN's algorithm choice or
-        the allocator's first growth. Runs on the caller's thread — call
-        before serving traffic."""
-        if self.sample_shape is None:
-            raise ValueError("warmup needs the batcher's sample_shape")
-        for b in self.buckets:
-            np.asarray(self.fn(np.zeros((b, *self.sample_shape), self.dtype)))
+    def warmup(self, sample_shape: Optional[Sequence[int]] = None,
+               buckets: Optional[Sequence[int]] = None) -> None:
+        """Run every bucket (or ``buckets``) once up front, one fn call
+        each, so no live request pays the kernel build, cuDNN's algorithm
+        choice or the allocator's first growth. Runs on the caller's
+        thread — call before serving traffic."""
+        shape = tuple(sample_shape) if sample_shape else self.sample_shape
+        if shape is None:
+            raise ValueError("warmup needs a sample_shape")
+        for b in (buckets or self.buckets):
+            np.asarray(self.fn(np.zeros((b, *shape), self.dtype)))
 
     def _pick_bucket(self, n: int) -> int:
         for b in self.buckets:
@@ -454,7 +479,181 @@ class DynamicBatcher:
                     p.event.set()
 
 
+class Reloader:
+    """Hot-swap the batcher's model function without dropping traffic.
+
+    The JAX package's state machine and JSON (``protoasnet_tpu/server.py``
+    ``Reloader``), with the device work done the way PyTorch needs it:
+
+    - ``build(target, int8)`` (from ``serve_live`` or ``serve_forever``)
+      loads the new run or bundle and returns ``(fn, sample_shape,
+      dtype)``, fn numpy in, numpy logits out ("loading");
+    - the reloader thread then runs every bucket of the new fn once
+      ("compiling": the state keeps the JAX package's name, which clients
+      poll for). PyTorch compiles nothing ahead of time; a first call pays
+      the kernel library's load, cuDNN's choice of plan per shape and the
+      allocator's growth, and this pays them before the swap. On a CUDA
+      device the load and the warm-up run on a dedicated stream, so the
+      dispatch thread's stream keeps serving the old weights throughout,
+      and that stream is synchronised before the swap, so no request can
+      read weights whose copy to the device has not landed;
+    - the swap is one attribute store (``batcher.fn = new_fn``), and the
+      dispatch thread reads ``self.fn`` once per group, so every request
+      is served entirely by one weight set. The old model is freed only
+      when the last group that read it has finished.
+
+    The head kernels' launch counters count the warm-up's launches too.
+
+    Path safety: the daemon binds 0.0.0.0 by default, so reload is off
+    unless ``--allow_reload`` is given, and targets must resolve
+    (realpath, so symlinks cannot escape) under ``root``, by default the
+    initial artifact's parent directory. A root of ``/`` admits every
+    absolute path.
+
+    One reload at a time (409 while busy); a failure (a bad file, a model
+    whose input contract differs) leaves the old fn serving and parks the
+    error in the status JSON (GET /v1/reload).
+    """
+
+    def __init__(self, batcher: DynamicBatcher, build: Callable, root: str,
+                 default_int8: bool = False, device=None):
+        import os
+
+        self.batcher = batcher
+        self.build = build  # (target, int8) -> (fn, sample_shape, dtype)
+        self.root = os.path.realpath(root)
+        self.default_int8 = bool(default_int8)
+        self.device = device  # a CUDA device: warm up on a side stream
+        self._stream = None  # that stream, made at the first reload
+        self.generation = 0  # completed swaps
+        self._lock = threading.Lock()
+        self._busy = False
+        self._state = {"generation": 0, "state": "idle", "target": None,
+                       "error": None}
+
+    def status(self) -> dict:
+        with self._lock:
+            return dict(self._state, root=self.root)
+
+    def request(self, target: str, int8=None) -> Tuple[int, dict]:
+        """Validate and start a reload; returns (http_code, body)."""
+        import os
+
+        real = os.path.realpath(target)
+        # rstrip so a reload root of "/" yields the prefix "/", not "//"
+        if real != self.root and not real.startswith(
+                self.root.rstrip(os.sep) + os.sep):
+            return 400, {"error": f"target {target!r} resolves outside the "
+                                  f"reload root {self.root!r}"}
+        if not os.path.exists(real):
+            return 400, {"error": f"target {target!r} does not exist"}
+        with self._lock:
+            if self._busy:
+                return 409, dict(self._state, error="reload in progress")
+            self._busy = True
+            self._state = {"generation": self.generation, "state": "loading",
+                           "target": target, "error": None}
+            # the 202 body is the state before the worker starts: taken
+            # under the lock, since the worker may finish before we return
+            accepted = dict(self._state, root=self.root)
+        threading.Thread(target=self._work, args=(real, int8), daemon=True,
+                         name="reloader").start()
+        return 202, accepted
+
+    def _side_stream(self):
+        """The reloader's own CUDA stream on the daemon's device, else None.
+        One stream for the daemon's lifetime: the caching allocator keeps
+        freed blocks per stream, so a new stream per reload would hold
+        another warm-up's worth of device memory each time."""
+        if self.device is None:
+            return None
+        import torch
+
+        dev = torch.device(self.device)
+        if dev.type != "cuda":
+            return None
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(device=dev)
+        return self._stream
+
+    def _work(self, target: str, int8) -> None:
+        import contextlib
+
+        try:
+            stream = self._side_stream()
+            if stream is None:
+                on_stream = contextlib.nullcontext()
+            else:
+                import torch
+
+                on_stream = torch.cuda.stream(stream)
+            with on_stream:
+                fn, sample_shape, dtype = self.build(
+                    target, self.default_int8 if int8 is None else bool(int8))
+                sample_shape = tuple(sample_shape)
+                if (sample_shape != self.batcher.sample_shape
+                        or np.dtype(dtype) != self.batcher.dtype):
+                    # the input contract (/v1/spec, checked per request) is
+                    # fixed for the daemon's lifetime
+                    raise ValueError(
+                        f"new model input {sample_shape}/"
+                        f"{np.dtype(dtype).name} != serving contract "
+                        f"{self.batcher.sample_shape}/"
+                        f"{self.batcher.dtype.name}")
+                with self._lock:
+                    self._state["state"] = "compiling"
+                for b in self.batcher.buckets:
+                    np.asarray(fn(np.zeros((b, *sample_shape), dtype)))
+            if stream is not None:
+                stream.synchronize()
+            self.batcher.fn = fn  # THE swap: one attribute store
+            with self._lock:
+                self.generation += 1
+                self._state.update(state="serving",
+                                   generation=self.generation)
+                self._busy = False
+        except BaseException as e:  # noqa: BLE001 — old weights keep serving
+            with self._lock:
+                self._state.update(state="error",
+                                   error=f"{type(e).__name__}: {e}")
+                self._busy = False
+            if not isinstance(e, Exception):
+                raise
+
+
 # --- HTTP front end ---------------------------------------------------------
+
+
+_RELOAD_OFF = b"reload disabled (start the daemon with --allow_reload)"
+
+
+class _HTTPServer(ThreadingHTTPServer):
+    """ThreadingHTTPServer that closes a connection only after its client
+    has, and listens with the kernel's largest backlog.
+
+    A connection the server closes first leaves its address pair in
+    TIME_WAIT on the server for a minute, out of sight of the client's
+    port allocator: a client that opens a connection per request (every
+    urllib request does) now and then picks that port again, and its
+    handshake stalls until TIME_WAIT ends (63 s on the card's machine).
+    Reading to the client's FIN first, for at most ``linger_s``, puts
+    TIME_WAIT on the client's side. The default backlog of 5 overflows
+    when a few clients connect at once, and each dropped handshake costs
+    a retransmission of 1 s or more."""
+
+    request_queue_size = socket.SOMAXCONN
+    linger_s = 2.0
+
+    def shutdown_request(self, request):
+        deadline = time.monotonic() + self.linger_s
+        try:
+            while (left := deadline - time.monotonic()) > 0:
+                request.settimeout(left)
+                if not request.recv(1 << 16):
+                    break
+        except OSError:  # a timeout or a reset: close anyway
+            pass
+        super().shutdown_request(request)
 
 
 class _Inflight:
@@ -491,14 +690,17 @@ class _Inflight:
 
 def make_handler(batcher: DynamicBatcher, sample_ndim: int,
                  timeout_s: float = 60.0,
-                 max_body_bytes: int = 256 << 20):
+                 max_body_bytes: int = 256 << 20,
+                 reloader: Optional[Reloader] = None):
     """BaseHTTPRequestHandler subclass bound to ``batcher``.
 
     sample_ndim: rank WITHOUT batch (4 for video (T,H,W,3), 3 for image).
     Accepts request bodies with or without the batch dim.
     max_body_bytes: reject larger payloads with 413 before reading them
     (the daemon binds 0.0.0.0 by default — an unbounded Content-Length
-    would let any client OOM the serving host)."""
+    would let any client OOM the serving host).
+    reloader: enables POST/GET /v1/reload; None (default) answers both
+    with 403 (see Reloader's path safety)."""
     from http.server import BaseHTTPRequestHandler
 
     class Handler(BaseHTTPRequestHandler):
@@ -533,7 +735,15 @@ def make_handler(batcher: DynamicBatcher, sample_ndim: int,
                     self._send(503, b"dispatch thread dead", "text/plain")
             elif self.path == "/v1/stats":
                 snap = batcher.stats.snapshot()
+                if reloader is not None:
+                    snap["reload"] = reloader.status()
                 self._send(200, json.dumps(snap).encode(), "application/json")
+            elif self.path == "/v1/reload":
+                if reloader is None:
+                    self._send(403, _RELOAD_OFF, "text/plain")
+                else:
+                    self._send(200, json.dumps(
+                        reloader.status()).encode(), "application/json")
             elif self.path == "/metrics":
                 body = prometheus_text(batcher.stats.snapshot(),
                                        batcher.healthy).encode()
@@ -558,11 +768,38 @@ def make_handler(batcher: DynamicBatcher, sample_ndim: int,
                 self._send(404, b"not found", "text/plain")
 
         def do_POST(self):
+            if self.path == "/v1/reload":
+                self._do_reload()
+                return
             if self.path != "/v1/predict":
                 self._send(404, b"not found", "text/plain")
                 return
             with self.inflight:
                 self._do_predict()
+
+        def _do_reload(self):
+            if reloader is None:
+                self._send(403, _RELOAD_OFF, "text/plain")
+                return
+            cl = self.headers.get("Content-Length")
+            try:
+                n = int(cl) if cl is not None else -1
+            except ValueError:
+                n = -1
+            if not 0 <= n <= (64 << 10):  # control-plane body: tiny JSON
+                self.close_connection = True
+                self._send(400, b"Content-Length required (<= 64 KiB JSON)",
+                           "text/plain")
+                return
+            try:
+                body = json.loads(self.rfile.read(n) or b"{}")
+                target = body["target"]
+            except (ValueError, KeyError, TypeError) as e:
+                self._send(400, f'expected {{"target": <path>}} JSON: '
+                           f"{e!r}".encode(), "text/plain")
+                return
+            code, resp = reloader.request(str(target), body.get("int8"))
+            self._send(code, json.dumps(resp).encode(), "application/json")
 
         def _do_predict(self):
             try:
@@ -628,18 +865,20 @@ def make_handler(batcher: DynamicBatcher, sample_ndim: int,
 
 
 def _serve_loop(fn, sample_shape, dtype, host, port, max_batch,
-                max_delay_ms, warmup, ready_event, banner="",
-                stop_event=None):
+                max_delay_ms, warmup, ready_event, buckets=None,
+                banner="", stop_event=None, reload_build=None,
+                reload_root=None, reload_int8=False, device=None):
     """ready_event (optional): set once the socket is bound; the bound
     port is published as ``ready_event.port`` (useful with port=0).
     stop_event (optional): setting it shuts the server down cleanly —
     the test/embedding hook, since serve_forever() otherwise only exits
-    on KeyboardInterrupt."""
-    from http.server import ThreadingHTTPServer
-
+    on KeyboardInterrupt.
+    reload_build (optional): ``(target, int8) -> (fn, sample_shape,
+    dtype)``; enables the /v1/reload hot swap rooted at ``reload_root``,
+    warmed on a side stream of ``device`` when that is a CUDA device."""
     batcher = DynamicBatcher(fn, max_batch=max_batch,
                              max_delay_ms=max_delay_ms, dtype=dtype,
-                             sample_shape=sample_shape)
+                             buckets=buckets, sample_shape=sample_shape)
     try:
         if warmup:
             t0 = time.monotonic()
@@ -647,11 +886,16 @@ def _serve_loop(fn, sample_shape, dtype, host, port, max_batch,
             print(f"warmed {len(batcher.buckets)} buckets "
                   f"{batcher.buckets} in {time.monotonic() - t0:.1f}s")
         sample_bytes = int(np.prod(sample_shape)) * np.dtype(dtype).itemsize
+        reloader = None
+        if reload_build is not None:
+            reloader = Reloader(batcher, reload_build, reload_root,
+                                default_int8=reload_int8, device=device)
         handler_cls = make_handler(
             batcher, sample_ndim=len(sample_shape),
             # npy header is tiny; allow 16 full batches per request
-            max_body_bytes=16 * max_batch * sample_bytes + (1 << 20))
-        httpd = ThreadingHTTPServer((host, port), handler_cls)
+            max_body_bytes=16 * max_batch * sample_bytes + (1 << 20),
+            reloader=reloader)
+        httpd = _HTTPServer((host, port), handler_cls)
     except BaseException:
         batcher.close()
         raise
@@ -685,15 +929,92 @@ def _serve_loop(fn, sample_shape, dtype, host, port, max_batch,
 def serve_forever(bundle_path: str, host: str = "0.0.0.0", port: int = 8300,
                   max_batch: int = 128, max_delay_ms: float = 5.0,
                   warmup: bool = True, ready_event=None, stop_event=None,
-                  device=None):
+                  device=None, allow_reload: bool = False, reload_root=None):
     """Serve a port bundle on one device (CUDA unless ``device="cpu"``)
-    until interrupted or ``stop_event`` is set."""
-    from protoasnet_tpu_torch.serve import load_serving_bundle_with_spec
+    until interrupted or ``stop_event`` is set.
 
-    fn, shape, dtype = load_serving_bundle_with_spec(bundle_path, device)
+    allow_reload: expose POST /v1/reload {"target": <bundle under
+    reload_root>} to hot-swap to another port bundle (see Reloader); a
+    bundle is self-contained, so its ``int8`` flag is ignored.
+    """
+    import os
+
+    from protoasnet_tpu_torch.serve import load_serving_bundle_with_spec
+    from protoasnet_tpu_torch.utils.device import resolve_device
+
+    dev = resolve_device(device)
+    fn, shape, dtype = load_serving_bundle_with_spec(bundle_path, dev)
+
+    reload_build = None
+    if allow_reload:
+        def reload_build(target, int8):
+            nfn, nshape, ndtype = load_serving_bundle_with_spec(target, dev)
+            return nfn, nshape[1:], ndtype
+
     _serve_loop(fn, shape[1:], dtype, host, port, max_batch, max_delay_ms,
                 warmup, ready_event, banner=bundle_path,
-                stop_event=stop_event)
+                stop_event=stop_event, reload_build=reload_build,
+                reload_root=reload_root or os.path.dirname(
+                    os.path.abspath(bundle_path)), device=dev)
+
+
+def serve_live(run_dir: str, host: str = "0.0.0.0", port: int = 8300,
+               max_batch: int = 128, max_delay_ms: float = 5.0,
+               warmup: bool = True, ready_event=None,
+               uint8_input: bool = False, int8: bool = False,
+               calib_batches: int = 4, stop_event=None,
+               allow_reload: bool = False, reload_root=None, device=None):
+    """Serve a trained run directory live on one device (CUDA unless
+    ``device="cpu"``), with the bucket ladder of ``max_batch``.
+
+    The run (the port's, or the JAX package's) is rebuilt by
+    ``serve.load_trained_agent`` and served through the same
+    ``serve.make_serving_fn`` as an exported bundle, so on one device the
+    live logits equal the bundle's. uint8_input: raw grayscale uint8
+    frames in, the eval transform on the device. int8 is refused (the
+    w8a8 path is not ported; calib_batches is accepted for it).
+
+    allow_reload: expose POST /v1/reload {"target": <run dir under
+    reload_root>, "int8": bool?}: the new run is rebuilt and warmed while
+    the old weights serve, then swapped in (see Reloader). A run whose
+    per-sample input differs is refused, and so is ``int8: true``.
+    """
+    import os
+
+    from protoasnet_tpu_torch.serve import (INT8_REFUSAL, load_trained_agent,
+                                            make_serving_fn)
+    from protoasnet_tpu_torch.utils.device import resolve_device
+
+    if int8:
+        raise SystemExit(f"{INT8_REFUSAL}; nothing served")
+    dev = resolve_device(device)
+
+    def build(run):
+        agent, shape = load_trained_agent(run, dev)
+        return make_serving_fn(agent.model.eval(), uint8_input), tuple(shape)
+
+    fn, input_shape = build(run_dir)
+    sample_shape = input_shape[:-1] if uint8_input else input_shape
+    dtype = np.dtype(np.uint8 if uint8_input else np.float32)
+
+    reload_build = None
+    if allow_reload:
+        def reload_build(target, want_int8):
+            if want_int8:
+                raise ValueError(f"{INT8_REFUSAL}; the old weights keep "
+                                 f"serving")
+            new_fn, new_shape = build(target)
+            if new_shape != input_shape:
+                raise ValueError(f"run {target!r} input {new_shape} != "
+                                 f"serving contract {input_shape}")
+            return new_fn, sample_shape, dtype
+
+    _serve_loop(fn, sample_shape, dtype, host, port, max_batch,
+                max_delay_ms, warmup, ready_event,
+                banner=f"{run_dir} live ({dev})", stop_event=stop_event,
+                reload_build=reload_build,
+                reload_root=reload_root or os.path.dirname(
+                    os.path.abspath(run_dir)), device=dev)
 
 
 def main(argv=None):
@@ -701,19 +1022,39 @@ def main(argv=None):
     import signal
 
     ap = argparse.ArgumentParser(prog="python -m protoasnet_tpu_torch.server")
-    ap.add_argument("--bundle", required=True,
-                    help="port bundle (serve.save_serving_bundle)")
+    src = ap.add_mutually_exclusive_group(required=True)
+    src.add_argument("--bundle",
+                     help="port bundle (serve.save_serving_bundle)")
+    src.add_argument("--run_dir",
+                     help="trained run dir (the port's or the JAX "
+                          "package's): serve it live on one device")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     ap.add_argument("--host", default="0.0.0.0")
     ap.add_argument("--port", type=int, default=8300)
-    ap.add_argument("--max_batch", type=int, default=128)
+    ap.add_argument("--max_batch", type=int, default=128,
+                    help="measure it on the card: python -m "
+                         "protoasnet_tpu_torch.serve tune")
     ap.add_argument("--max_delay_ms", type=float, default=5.0)
     ap.add_argument("--no_warmup", action="store_true")
+    ap.add_argument("--uint8_input", action="store_true",
+                    help="(--run_dir only) raw grayscale uint8 frames in, "
+                         "eval transform on the device")
+    ap.add_argument("--int8", action="store_true",
+                    help="(--run_dir only) w8a8 backbone: not ported yet, "
+                         "refused")
+    ap.add_argument("--calib_batches", type=int, default=4,
+                    help="(--int8 only) calibration batches")
+    ap.add_argument("--allow_reload", action="store_true",
+                    help="expose POST /v1/reload weight hot-swap; targets "
+                         "must resolve under --reload_root")
+    ap.add_argument("--reload_root", default=None,
+                    help="directory reload targets must live under "
+                         "(default: the initial artifact's parent dir)")
     a = ap.parse_args(argv)
 
     # Supervisors (systemd, k8s, docker stop) send SIGTERM, not SIGINT;
     # route it through stop_event so in-flight batches drain cleanly.
-    # During startup (bundle load, kernel build, warmup) there is nothing
+    # During startup (model load, kernel build, warmup) there is nothing
     # to drain: exit at once with the conventional 128 + SIGTERM.
     stop, ready = threading.Event(), threading.Event()
 
@@ -723,9 +1064,18 @@ def main(argv=None):
             raise SystemExit(143)
 
     signal.signal(signal.SIGTERM, _on_term)
-    serve_forever(a.bundle, a.host, a.port, a.max_batch, a.max_delay_ms,
-                  warmup=not a.no_warmup, ready_event=ready, stop_event=stop,
-                  device=a.device)
+    if a.bundle:
+        serve_forever(a.bundle, a.host, a.port, a.max_batch, a.max_delay_ms,
+                      warmup=not a.no_warmup, ready_event=ready,
+                      stop_event=stop, device=a.device,
+                      allow_reload=a.allow_reload, reload_root=a.reload_root)
+    else:
+        serve_live(a.run_dir, a.host, a.port, a.max_batch, a.max_delay_ms,
+                   warmup=not a.no_warmup, ready_event=ready,
+                   uint8_input=a.uint8_input, int8=a.int8,
+                   calib_batches=a.calib_batches, stop_event=stop,
+                   allow_reload=a.allow_reload, reload_root=a.reload_root,
+                   device=a.device)
 
 
 if __name__ == "__main__":

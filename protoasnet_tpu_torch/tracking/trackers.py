@@ -1,21 +1,39 @@
-"""Experiment tracking: ``wandb_mode: disabled`` (every shipped config)
-appends each metric dict to ``<save_dir>/metrics.jsonl``, one JSON object
-a line. Keys follow the JAX package's (``batch_<mode>/...``,
-``epoch/<mode>/...``). The wandb sink is not ported.
+"""Experiment tracking, with the JAX package's dispatch
+(``protoasnet_tpu/tracking/trackers.py``):
+
+* ``wandb_mode: disabled`` (every shipped config) appends each metric
+  dict to ``<save_dir>/metrics.jsonl``, one JSON object a line;
+* any other mode (``online``, ``offline``) logs to wandb when the
+  ``wandb`` package is importable, and otherwise falls back to the JSONL
+  file with a warning, so a run trained with ``--wandb_mode=offline``
+  still rebuilds (export, explain, serving) where wandb is absent.
+
+Keys follow the JAX package's (``batch_<mode>/...``, ``epoch/<mode>/...``).
 """
 
 from __future__ import annotations
 
 import json
+import logging
 import os
 import time
 from typing import Any, Dict
 
-__all__ = ["JsonlTracker", "make_tracker"]
+__all__ = ["Tracker", "JsonlTracker", "WandbTracker", "make_tracker"]
+
+_MODES = ("train", "val", "val_push", "test")
 
 
-class JsonlTracker:
-    def __init__(self, save_dir: str):
+class Tracker:
+    def log(self, data: Dict[str, Any]) -> None:  # pragma: no cover
+        raise NotImplementedError
+
+    def finish(self) -> None:
+        pass
+
+
+class JsonlTracker(Tracker):
+    def __init__(self, save_dir: str, run_name: str = ""):
         os.makedirs(save_dir, exist_ok=True)
         self.path = os.path.join(save_dir, "metrics.jsonl")
         self._f = open(self.path, "a", buffering=1)
@@ -34,10 +52,44 @@ class JsonlTracker:
         self._f.close()
 
 
-def make_tracker(config: Dict[str, Any]) -> JsonlTracker:
+class WandbTracker(Tracker):
+    """wandb's run, with the JAX package's per-mode step axes and min/max
+    summaries. Raises ImportError where ``wandb`` is not installed."""
+
+    def __init__(self, save_dir: str, run_name: str, mode: str,
+                 config: Dict):
+        import wandb
+
+        self._wandb = wandb
+        wandb.init(project="ProtoASNet-TPU", name=run_name, mode=mode,
+                   dir=save_dir, config=config)
+        for m in _MODES:
+            wandb.define_metric(f"batch_{m}/step")
+            wandb.define_metric(f"batch_{m}/*", step_metric=f"batch_{m}/step")
+        wandb.define_metric("epoch")
+        for m in _MODES:
+            wandb.define_metric(f"epoch/{m}/f1_mean", step_metric="epoch",
+                                summary="max")
+            wandb.define_metric(f"epoch/{m}/AUC_mean", step_metric="epoch",
+                                summary="max")
+            wandb.define_metric(f"epoch/{m}/loss_all", step_metric="epoch",
+                                summary="min")
+
+    def log(self, data: Dict[str, Any]) -> None:
+        self._wandb.log(data)
+
+    def finish(self) -> None:
+        self._wandb.finish()
+
+
+def make_tracker(config: Dict[str, Any]) -> Tracker:
     mode = config.get("wandb_mode", "disabled")
-    if mode != "disabled":
-        raise NotImplementedError(f"wandb_mode {mode!r}: the port logs to "
-                                  f"metrics.jsonl only (wandb_mode: "
-                                  f"disabled)")
-    return JsonlTracker(config.get("save_dir", "."))
+    save_dir = config.get("save_dir", ".")
+    run_name = config.get("run_name", "run")
+    if mode == "disabled":
+        return JsonlTracker(save_dir, run_name)
+    try:
+        return WandbTracker(save_dir, run_name, mode, config)
+    except ImportError:
+        logging.warning("wandb not installed; falling back to JSONL tracker")
+        return JsonlTracker(save_dir, run_name)

@@ -937,3 +937,96 @@ def test_exported_bundle_served_with_each_head_kernel(dev, tmp_path, config,
                         torch.ones(4, dtype=torch.bool, device=dev))
     np.testing.assert_allclose(served, m["logits"].float().cpu().numpy(),
                                rtol=1e-4, atol=1e-4)
+
+
+LIVE_CFG = {"name": "Video_XProtoNet", "base_architecture": "resnet2p1d_18",
+            "backbone_last_layer_num": -3,
+            "prototype_shape": (8, 64, 1, 1, 1), "num_classes": 4,
+            "img_size": 32, "dtype": "float32"}
+LIVE_SAMPLE = (8, 32, 32, 3)
+
+
+def _live_bundles(tmp_path):
+    from protoasnet_tpu_torch.models.builder import build_model
+    from protoasnet_tpu_torch.serve import save_serving_bundle
+
+    paths = []
+    for seed in (1, 2):
+        path = str(tmp_path / f"b{seed}.zip")
+        save_serving_bundle(path, build_model(LIVE_CFG, device="cpu",
+                                              seed=seed),
+                            LIVE_CFG, LIVE_SAMPLE)
+        paths.append(path)
+    return paths
+
+
+def test_reload_warms_up_on_a_side_stream(dev, tmp_path):
+    """``server.Reloader`` on the card: the new weights load and every
+    bucket runs once on the reloader thread on a stream of its own (the
+    ROI kernel launching there), while the dispatch thread keeps the
+    default stream; after the swap the batcher serves the new bundle's
+    logits. A second reload warms up on the same stream."""
+    import threading
+    import time
+
+    from protoasnet_tpu_torch import server
+    from protoasnet_tpu_torch.serve import load_serving_bundle
+
+    paths = _live_bundles(tmp_path)
+    calls = []
+    default = torch.cuda.default_stream(dev).cuda_stream
+
+    def build(target, int8):
+        fn = load_serving_bundle(target, dev)
+
+        def traced(x):
+            calls.append((threading.current_thread().name, len(x),
+                          torch.cuda.current_stream(dev).cuda_stream))
+            return fn(x)
+
+        return traced, LIVE_SAMPLE, np.float32
+
+    def reload(r, path):
+        assert r.request(path, None)[0] == 202
+        deadline = time.time() + 300
+        while r.status()["state"] not in ("serving", "error") and \
+                time.time() < deadline:
+            time.sleep(0.01)
+        assert r.status()["state"] == "serving", r.status()
+
+    b = server.DynamicBatcher(load_serving_bundle(paths[0], dev),
+                              max_batch=2, max_delay_ms=1.0,
+                              sample_shape=LIVE_SAMPLE)
+    try:
+        r = server.Reloader(b, build, root=str(tmp_path), device=dev)
+        before = roi_cosine_cuda.launches
+        reload(r, paths[1])
+        side = calls[0][2]
+        assert side != default
+        assert calls == [("reloader", 1, side), ("reloader", 2, side)]
+        assert roi_cosine_cuda.launches >= before + 2
+        x = np.random.default_rng(30).normal(
+            size=(2, *LIVE_SAMPLE)).astype(np.float32)
+        got = b.submit(x, timeout=300)
+        assert calls[-1] == ("batcher-dispatch", 2, default)
+        reload(r, paths[0])
+        assert calls[-2:] == [("reloader", 1, side), ("reloader", 2, side)]
+    finally:
+        b.close()
+    np.testing.assert_array_equal(got, load_serving_bundle(paths[1], dev)(x))
+
+
+def test_tune_on_the_card_at_two_batches(dev, tmp_path):
+    """``serve tune`` times the bundle's forward on the card at two batch
+    sizes through the ROI kernel; both get a rate."""
+    from protoasnet_tpu_torch.serve import tune_bundle
+
+    path = _live_bundles(tmp_path)[0]
+    before = roi_cosine_cuda.launches
+    report = tune_bundle(path, [2, 4], points=(2, 18), device=dev)
+    assert set(report["results"]) == {2, 4}
+    for r in report["results"].values():
+        assert set(r) == {"ms_per_batch", "samples_per_sec", "compile_s"}
+        assert r["samples_per_sec"] > 0
+    assert report["recommended_max_batch"] in (2, 4)
+    assert roi_cosine_cuda.launches >= before + 2 * (1 + 2 + 18)

@@ -64,7 +64,8 @@ def test_port_imports_no_jax():
                  "data.dataset", "push.push", "explain.render",
                  "tracking.trackers", "utils.io", "utils.run",
                  "models.pretrained", "main", "explain.local",
-                 "explain.__main__", "serve", "models.from_jax"):
+                 "explain.__main__", "serve", "models.from_jax",
+                 "client"):
         assert "protoasnet_tpu_torch." + name in out["modules"], name
     assert out["bad"] == []
 
@@ -89,6 +90,13 @@ def test_port_sources_name_no_jax():
                  *sorted((REPO / "protoasnet_tpu_torch").rglob("*.py"))]:
         for mod in _imported_modules(path):
             assert mod.split(".")[0] not in FORBIDDEN, (path, mod)
+
+
+def test_client_needs_only_the_standard_library_and_numpy():
+    """A machine that only talks to the daemon needs nothing else."""
+    mods = set(_imported_modules(REPO / "protoasnet_tpu_torch" / "client.py"))
+    assert {m.split(".")[0] for m in mods} - set(sys.stdlib_module_names) \
+        - {"__future__"} == {"numpy"}
 
 
 def _no_card():
@@ -129,6 +137,31 @@ def test_server_cli_refuses_without_cuda(tmp_path):
                  "--port", "0", "--no_warmup"], REPO)
     assert proc.returncode != 0
     assert "CUDA is not available" in proc.stderr
+
+
+def test_live_server_and_tune_refuse_without_cuda(tmp_path):
+    """``serve_live``, the server's ``--run_dir`` and ``serve tune``
+    without ``device="cpu"`` / ``--device cpu``: they raise before they
+    load anything."""
+    _no_card()
+    from protoasnet_tpu_torch import server
+    from protoasnet_tpu_torch.models.builder import build_model
+    from protoasnet_tpu_torch.serve import save_serving_bundle, tune_bundle
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        server.serve_live(str(tmp_path), port=0)
+    path = str(tmp_path / "b.zip")
+    save_serving_bundle(path, build_model(CFG, device="cpu"), CFG,
+                        (8, 32, 32, 3))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tune_bundle(path, [1])
+    for cmd in (["-m", "protoasnet_tpu_torch.server", "--run_dir",
+                 str(tmp_path), "--port", "0"],
+                ["-m", "protoasnet_tpu_torch.serve", "tune", "--bundle",
+                 path, "--batches", "1"]):
+        proc = _run(cmd, REPO)
+        assert proc.returncode != 0
+        assert "CUDA is not available" in proc.stderr
 
 
 def test_training_entry_point_refuses_without_cuda(tmp_path):
