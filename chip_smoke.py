@@ -3,8 +3,9 @@ flagship (Video ProtoASNet), the ProtoPNet baseline and the image
 ProtoASNet on one NVIDIA GPU, through the hand-written CUDA kernels, the
 experiment entry points of the R(2+1)D block kernels, the training
 paths of the video flagship, the ProtoPNet baseline and the image
-ProtoASNet, and the trained runs explained, exported, served live,
-reloaded and tuned.
+ProtoASNet, the trained runs explained, exported, served live, reloaded
+and tuned, the training loop's instrumentation, ``model.remat`` and the
+reference's ``.pth`` both ways.
 
     python3 chip_smoke.py
 
@@ -127,6 +128,27 @@ raises and the script exits non-zero without printing a result):
    (``--points 4 20``), its rate at 128 beside phase 5's forward rate,
    then one forward of the bundle at each of those batches with the
    kernel and with the plain head (bf16, 2e-2; not counted).
+16. the training loop's instrumentation on phase 7's run (its config and
+   ``last.ckpt``): a bf16 training epoch with ``train.on_device_metrics``
+   false and true, the epoch metrics equal within 1e-5, each path's
+   ``cudaStreamSynchronize`` calls and device -> host copies per
+   micro-step (``utils/profiling.py::device_window``) and its ms a
+   micro-step (the StepTimer of a second epoch); a third agent with
+   ``profile_dir`` writes a trace at ``profile_epoch`` holding
+   ``roi_cosine_kernel`` events, read back from the file; the port's FLOP
+   counts of the forward and the train micro-step equal on the card and
+   the CPU, and the MFU of the served flagship at 128 (phase 5's rate)
+   and of the train micro-step (phase 7's rate) against the card's bf16
+   peak;
+17. ``model.remat``: the bf16 flagship micro-step at batch 5 with remat
+   false and true, ms and peak allocated memory; in fp32 (TF32 off,
+   batch 2) gradients, weights and BatchNorm statistics with remat equal
+   those without within 1e-5 of each tensor's max;
+18. phase 7's and phase 9's runs through the reference's ``.pth`` and
+   back (``protoasnet_tpu_torch.models.migrate``, ``--to_reference`` and
+   then to a ``.pkl``), loaded by the port's agent through
+   ``model.checkpoint_path`` and served on the card at 128: logits
+   bit-equal to the run's own, each kernel's launches counted.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or of the JAX
@@ -196,25 +218,14 @@ def time_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def kernel_device_ms(fn, name: str, iters: int = 50):
-    """Mean device time in ms of the CUDA kernels whose name contains
-    ``name`` per call of ``fn``, from ``torch.profiler``; None if the
-    profiler recorded no device time for them."""
-    from torch.profiler import ProfilerActivity, profile
+def kernel_device_ms(fn, name: str, iters: int = 50) -> float:
+    """Mean device time in ms of one recorded CUDA kernel whose name
+    contains ``name`` over ``iters`` calls of ``fn`` (one launch a call),
+    from ``utils/profiling.py::device_window``; raises if the window holds
+    none of them (ROADMAP.md §3, F4)."""
+    from protoasnet_tpu_torch.utils.profiling import device_window
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = 0.0
-    for e in prof.key_averages():
-        if name in e.key and e.device_type == torch.autograd.DeviceType.CUDA:
-            us += getattr(e, "self_device_time_total",
-                          getattr(e, "self_cuda_time_total", 0.0))
-    return us / 1e3 / iters if us > 0 else None
+    return device_window(fn, iters=iters).device_ms(name)
 
 
 def card_line() -> str:
@@ -333,12 +344,10 @@ def phase_head(dev, shape, label):
         log(f"[2 head {label}] {str(dtype)[6:]} N={n} S={s} P={p} D={d}: "
             f"roi max abs err {err_roi:.3e} (rel {rel_roi:.3e}), sim max abs "
             f"err {err_sim:.3e} (rel {rel_sim:.3e}); wrapper call {ms:.4f} "
-            f"ms, kernel alone on the device "
-            f"{'not measured' if dev_ms is None else f'{dev_ms:.4f} ms'} "
-            f"(profiler), plain {plain_ms:.4f} ms, {str(dtype)[6:]} bmm of "
-            f"roi alone {bmm_ms:.4f} ms, bound {bound_ms:.4f} ms "
-            f"({bound_by}), kernel runs {times['kernel']} plain runs "
-            f"{times['plain']}; at N=8 roi max abs err {e8[0]:.3e}, sim "
+            f"ms, kernel alone on the device {dev_ms:.4f} ms (profiler), "
+            f"plain {plain_ms:.4f} ms, {str(dtype)[6:]} bmm of roi alone "
+            f"{bmm_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), kernel "
+            f"runs {times['kernel']} plain runs {times['plain']}; at N=8 roi max abs err {e8[0]:.3e}, sim "
             f"{e8[2]:.3e}")
         if dtype == torch.bfloat16:
             record = {"max_abs_err": max(err_roi, err_sim), "ms": ms,
@@ -400,10 +409,9 @@ def phase_l2(dev):
     log(f"[2 l2_min] fp32 N={n} S={s} P={p} D={d}: max abs err {err:.3e} "
         f"(scale |x|^2+|w|^2 = {scale:.1f}; at N=8 {err8:.3e}), min_d == "
         f"dist.amin(1); wrapper call {ms:.4f} ms, kernel alone on the "
-        f"device {'not measured' if dev_ms is None else f'{dev_ms:.4f} ms'}"
-        f" (profiler), plain {plain_ms:.4f} ms, torch.cdist (unsquared "
-        f"distances, no min) {cdist_ms:.4f} ms, bound {bound_ms:.4f} ms "
-        f"({bound_by}); kernel runs {times['kernel']} plain runs "
+        f"device {dev_ms:.4f} ms (profiler), plain {plain_ms:.4f} ms, "
+        f"torch.cdist (unsquared distances, no min) {cdist_ms:.4f} ms, "
+        f"bound {bound_ms:.4f} ms ({bound_by}); kernel runs {times['kernel']} plain runs "
         f"{times['plain']}")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
@@ -1087,9 +1095,8 @@ def _train_rate(tag, what, step, x, target, unit, **kw):
     """Samples/s of ``step`` (a train micro-step) on the device-resident
     batch ``x``, the device-busy share and the top device ops of two
     profiled micro-steps; returns (samples/s, busy share)."""
-    from torch.profiler import ProfilerActivity, profile
-
     from protoasnet_tpu_torch.train.optim import GROUPS
+    from protoasnet_tpu_torch.utils.profiling import device_window
 
     n = len(x)
     valid = torch.ones(n, dtype=torch.bool, device=x.device)
@@ -1105,19 +1112,14 @@ def _train_rate(tag, what, step, x, target, unit, **kw):
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) / iters * 1e3
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(2):
-            step(x, target, valid, lrs, **kw)
-        torch.cuda.synchronize()
-    events = prof.key_averages()
+    window = device_window(lambda: step(x, target, valid, lrs, **kw),
+                           iters=2, warmup=0)
+    events = window.events
     # kernels only: a user annotation's range (``Optimizer.step#Adam.step``)
     # spans the kernels launched inside it and the gaps between them
     rows = [(getattr(e, "self_device_time_total",
                      getattr(e, "self_cuda_time_total", 0.0)) / 2e3, e.key,
-             e.count // 2) for e in events
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and not (getattr(e, "is_user_annotation", False) or "#" in e.key)]
+             e.count // 2) for e in window.kernel_events]
     busy = sum(r[0] for r in rows)
     rows.sort(reverse=True)
     host = sorted(((e.self_cpu_time_total / 2e3, e.key, e.count // 2)
@@ -1127,7 +1129,8 @@ def _train_rate(tag, what, step, x, target, unit, **kw):
     log(f"[{tag}] {what}: {ms:.2f} ms, {n / ms * 1e3:.1f} {unit}/s, peak "
         f"memory {peak:.2f} GiB; device busy {busy:.2f} ms per micro-step "
         f"({100 * busy / ms:.1f}% of it; kernels only, profiler, 2 "
-        f"micro-steps)")
+        f"micro-steps: {window.kernel_records} kernel records for "
+        f"{window.launch_calls} kernel launch calls)")
     for dev_ms, name, count in rows[:12]:
         log(f"[{tag}]   {dev_ms:9.3f} ms {100 * dev_ms / busy:5.1f}% "
             f"x{count:<4d} {name[:110]}")
@@ -2078,6 +2081,289 @@ def phase_tune(dev, bundle: Path, forward_128: float):
     return launches
 
 
+# phases 16-18: the training loop's instrumentation, remat, the reference's
+# .pth both ways
+SYNCS = ("cudaStreamSynchronize", "cudaDeviceSynchronize")
+
+
+def _run_agent(run: Path, work: Path, name: str, checkpoint=None,
+               top=None, **train_keys):
+    """An agent of a training run's config writing to ``work/name``, with
+    the run's ``last.ckpt`` (or ``checkpoint``) as
+    ``model.checkpoint_path``, the top-level keys of ``top`` and
+    ``train_keys`` in its ``train`` section."""
+    from protoasnet_tpu_torch.train.agents import build_agent
+    from protoasnet_tpu_torch.utils.config import load_config
+
+    cfg = load_config(str(run / "config_train.yml"))
+    cfg.update(top or {})
+    cfg["save_dir"] = str(work / name)
+    cfg["model"]["checkpoint_path"] = str(checkpoint or run / "last.ckpt")
+    cfg["train"].update(auto_resume=False, **train_keys)
+    return build_agent(cfg)
+
+
+def _epoch_row(agent, mode: str):
+    rows = [json.loads(line) for line in
+            (Path(agent.save_dir) / "metrics.jsonl").read_text().splitlines()]
+    return [r for r in rows if f"epoch/{mode}/loss_all" in r][-1]
+
+
+def _trace_kernels(log_dir: Path, name: str) -> int:
+    """Kernel events named like ``name`` in the trace files of
+    ``log_dir``, read back from the JSON."""
+    files = sorted(log_dir.glob("*.pt.trace.json"))
+    if len(files) != 1:
+        raise AssertionError(f"profile_dir holds {files}")
+    events = json.loads(files[0].read_text())["traceEvents"]
+    return sum(1 for e in events if e.get("cat") == "kernel"
+               and name in e.get("name", ""))
+
+
+def _step_flops(cfg, device, batch):
+    """FLOPs of one flagship train micro-step (fp32 weights, the config's
+    loss terms) at ``batch`` on ``device``, and of the forward of one
+    clip."""
+    from protoasnet_tpu_torch.losses.bundle import LossBundle
+    from protoasnet_tpu_torch.models.builder import build_model
+    from protoasnet_tpu_torch.train.optim import (GROUPS, GradAccumulator,
+                                                  GroupAdam)
+    from protoasnet_tpu_torch.train.steps import make_xprotonet_steps
+    from protoasnet_tpu_torch.utils.flops import count_flops
+
+    model = build_model(dict(cfg["model"], dtype="float32"), device=device,
+                        seed=0)
+    opt = GroupAdam(model, {gr: 1e-3 for gr in GROUPS})
+    step = make_xprotonet_steps(
+        model, LossBundle(cfg["train"]["criterion"], num_classes=4,
+                          abstain_class=True),
+        opt, GradAccumulator(opt.params, 2))[0]
+    x = torch.from_numpy(np.random.default_rng(16).normal(
+        size=(batch, *CLIP)).astype(np.float32)).to(device)
+    target = torch.arange(batch, device=device) % 3
+    train = count_flops(lambda: step(
+        x, target, torch.ones(batch, dtype=torch.bool, device=device),
+        {gr: 1e-4 for gr in GROUPS}, affine=(11.0, 1.25)))
+    with torch.no_grad():
+        fwd = count_flops(lambda: model.eval()(x[:1]))
+    return train, fwd
+
+
+def phase_instrumentation(dev, cfg, train, work: Path, serve_rate: float,
+                          train_rate: float) -> int:
+    """16: phase 7's bf16 training epoch (its run's config and weights) on
+    the host metric path and on the device path: the epoch metrics agree
+    to 1e-5; per micro-step the host's stream / device synchronisations
+    and the device -> host copies of each path (profiler), and its ms
+    (the StepTimer of an unprofiled second epoch); a third run with
+    ``profile_dir`` writes a trace holding ``roi_cosine_kernel`` events;
+    the MFU of the served flagship at 128 (phase 5's rate) and of the
+    train micro-step at batch 5 (phase 7's rate), from the port's FLOP
+    counts, which are the same on the card as on the CPU.
+    ``roi_cosine_cuda``'s launches are set to 0 before and read after."""
+    from protoasnet_tpu_torch.ops.roi_cosine_cuda import roi_cosine_cuda
+    from protoasnet_tpu_torch.utils.flops import mfu
+    from protoasnet_tpu_torch.utils.profiling import device_window
+
+    roi_cosine_cuda.launches = 0
+    res, rows = {}, {}
+    for on_device in (False, True):
+        agent = _run_agent(train["run"], work, f"epoch_device_{on_device}",
+                           on_device_metrics=on_device)
+        steps = len(agent.data_loaders["train"])
+        window = device_window(
+            lambda: res.__setitem__(on_device, agent.run_epoch(0, "train")),
+            warmup=0)
+        rows[on_device] = _epoch_row(agent, "train")
+        syncs = window.host_counts(SYNCS)
+        dtoh = window.device_counts("Memcpy DtoH")
+        agent.run_epoch(1, "train")  # unprofiled: the StepTimer's ms
+        t = agent.epoch_timer
+        ms = {k: 1e3 * v / steps for k, v in t.totals.items()}
+        log(f"[16 metrics] {'device' if on_device else 'host'} path, "
+            f"train epoch of {steps} micro-steps: per micro-step "
+            f"{syncs['cudaStreamSynchronize'] / steps:g} "
+            f"cudaStreamSynchronize, "
+            f"{syncs['cudaDeviceSynchronize'] / steps:g} "
+            f"cudaDeviceSynchronize, {dtoh / steps:g} device->host copies "
+            f"(profiled epoch); {sum(ms.values()):.2f} ms a micro-step "
+            f"(data {ms['data']:.2f}, step {ms['step']:.2f}, host_metrics "
+            f"{ms['host_metrics']:.2f}; second epoch, StepTimer)")
+        agent.finalize()
+    keys = sorted(k for k in rows[False] if k.startswith("epoch/train/"))
+    diffs = [abs(a - b) for a, b in zip(res[False], res[True])] + [
+        abs(rows[False][k] - rows[True][k]) / max(1.0, abs(rows[False][k]))
+        for k in keys]
+    log(f"[16 metrics] (accuracy, f1, AUC) host {res[False]} device "
+        f"{res[True]}; {len(keys)} epoch values, largest difference "
+        f"{max(diffs):.3e} (limit 1e-5)")
+    if max(diffs) > 1e-5 or set(keys) != {k for k in rows[True]
+                                          if k.startswith("epoch/train/")}:
+        raise AssertionError("the device metric path disagrees with the "
+                             "host path")
+
+    prof = work / "profile"
+    agent = _run_agent(train["run"], work, "epoch_profiled",
+                       top={"profile_dir": str(prof), "profile_epoch": 0})
+    agent.run_epoch(0, "train")
+    agent.finalize()
+    n_roi = _trace_kernels(prof, "roi_cosine_kernel")
+    if not n_roi:
+        raise AssertionError("the profiled epoch's trace holds no "
+                             "roi_cosine_kernel event")
+
+    step_card, fwd_card = _step_flops(cfg, dev, 2)
+    step_cpu, fwd_cpu = _step_flops(cfg, torch.device("cpu"), 2)
+    step5, _ = _step_flops(cfg, dev, 5)
+    if (step_card, fwd_card) != (step_cpu, fwd_cpu):
+        raise AssertionError(f"FLOPs on the card {step_card, fwd_card} != "
+                             f"on the CPU {step_cpu, fwd_cpu}")
+    launches = roi_cosine_cuda.launches
+    if not launches:
+        raise AssertionError("phase 16: roi_cosine_cuda never launched")
+    log(f"[16 trace] profile_dir at profile_epoch 0: "
+        f"{sorted(p.name for p in prof.iterdir())}, {n_roi} "
+        f"roi_cosine_kernel events read back from the file")
+    log(f"[16 flops] flagship forward {fwd_card:.0f} FLOP a clip, train "
+        f"micro-step at batch 2 {step_card:.0f} (card == CPU), at batch 5 "
+        f"{step5:.0f} ({step5 / 5:.0f} a clip); MFU against the bf16 peak "
+        f"989.4 TFLOP/s: served at 128 {mfu(fwd_card, serve_rate):.4f} "
+        f"({serve_rate:.1f} clips/s), train micro-step "
+        f"{mfu(step5 / 5, train_rate):.4f} ({train_rate:.1f} clips/s); "
+        f"roi_cosine_cuda launches {launches}")
+    return launches
+
+
+def phase_remat(dev, cfg) -> int:
+    """17: the bf16 flagship's train micro-step at batch 5 (an Adam step
+    every 2, as phase 7's) with ``model.remat`` false and true: ms and
+    peak allocated memory; in fp32 (TF32 off, batch 2) the gradients and
+    the BatchNorm statistics after one micro-step with remat equal those
+    without, to 1e-5 of each tensor's max. ``roi_cosine_cuda``'s launches are set to 0 before and read
+    after."""
+    from protoasnet_tpu_torch.losses.bundle import LossBundle
+    from protoasnet_tpu_torch.models.builder import build_model
+    from protoasnet_tpu_torch.ops.roi_cosine_cuda import roi_cosine_cuda
+    from protoasnet_tpu_torch.train.optim import (GROUPS, GradAccumulator,
+                                                  GroupAdam)
+    from protoasnet_tpu_torch.train.steps import make_xprotonet_steps
+
+    def make(remat, dtype, batch):
+        model = build_model(dict(cfg["model"], remat=remat, dtype=dtype),
+                            device=dev, seed=0)
+        opt = GroupAdam(model, {gr: 1e-3 for gr in GROUPS})
+        step = make_xprotonet_steps(
+            model, LossBundle(cfg["train"]["criterion"], num_classes=4,
+                              abstain_class=True),
+            opt, GradAccumulator(opt.params, 2))[0]
+        x = torch.from_numpy(np.random.default_rng(17).normal(
+            size=(batch, *CLIP)).astype(np.float32)).to(dev)
+        target = torch.arange(batch, device=dev) % 3
+        valid = torch.ones(batch, dtype=torch.bool, device=dev)
+        return model, lambda: step(x, target, valid,
+                                   {gr: 1e-4 for gr in GROUPS},
+                                   affine=(11.0, 1.25))
+
+    roi_cosine_cuda.launches = 0
+    report = {}
+    for remat in (False, True):
+        model, run = make(remat, "bfloat16", 5)
+        for _ in range(3):
+            run()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            run()
+        torch.cuda.synchronize()
+        report[remat] = ((time.perf_counter() - t0) / 10 * 1e3,
+                         torch.cuda.max_memory_allocated() / 2 ** 30)
+        del model, run
+    worst = {}
+    with no_tf32():
+        states = []
+        for remat in (False, True):
+            model, run = make(remat, "float32", 2)
+            run()  # one micro-step of two: its gradient stays in .grad
+            states.append({
+                **{f"grad:{k}": p.grad.detach().clone()
+                   for k, p in model.named_parameters()},
+                **{k: v.detach().clone()
+                   for k, v in model.state_dict().items()}})
+            del model, run
+    for k, ref in states[0].items():
+        got = states[1][k]
+        if not ref.is_floating_point():
+            worst[k] = float(not torch.equal(got, ref))
+            continue
+        worst[k] = ((got - ref).abs().max()
+                    / ref.abs().max().clamp_min(1e-30)).item()
+    name = max(worst, key=worst.get)
+    launches = roi_cosine_cuda.launches
+    log(f"[17 remat] bf16 flagship train micro-step at batch 5: remat "
+        f"false {report[False][0]:.2f} ms, peak {report[False][1]:.3f} "
+        f"GiB; remat true {report[True][0]:.2f} ms, peak "
+        f"{report[True][1]:.3f} GiB; fp32 (TF32 off, batch 2) remat vs "
+        f"not over {len(worst)} gradients, weights and BN buffers after a "
+        f"micro-step: largest "
+        f"{worst[name]:.3e} of the tensor's max ({name}; limit 1e-5); "
+        f"roi_cosine_cuda launches {launches}")
+    if worst[name] > 1e-5 or not launches:
+        raise AssertionError("remat: the step differs from the plain step")
+    if report[True][1] >= report[False][1]:
+        raise AssertionError("remat did not lower the peak memory")
+    return launches
+
+
+def phase_reference_pth(dev, train, ppnet_run: Path, work: Path):
+    """18: phase 7's flagship run and phase 9's ProtoPNet run through the
+    reference's ``.pth`` and back: ``python -m
+    protoasnet_tpu_torch.models.migrate <last.ckpt> <.pth> --to_reference``,
+    then ``<.pth> <.pkl>`` (the CLI's ``main`` in process), the ``.pkl``
+    loaded by the port's agent through ``model.checkpoint_path`` and
+    served on the card at 128 (``make_serving_fn``): its logits bit-equal
+    to the run's own (``load_trained_agent``). Each kernel's launches are
+    set to 0 before its model and read after; returns
+    {kernel: launches}."""
+    from protoasnet_tpu_torch.models.migrate import main as migrate_main
+    from protoasnet_tpu_torch.ops.l2_min_cuda import l2_min_cuda
+    from protoasnet_tpu_torch.ops.roi_cosine_cuda import roi_cosine_cuda
+    from protoasnet_tpu_torch.serve import (load_trained_agent,
+                                            make_serving_fn)
+
+    out = {}
+    for label, run, kernel, sample in (
+            ("flagship", train["run"], roi_cosine_cuda, CLIP),
+            ("ProtoPNet", ppnet_run, l2_min_cuda, PPNET["sample"])):
+        cfg_path = f"--config_path={run / 'config_train.yml'}"
+        pth, pkl = work / f"{label}_ref.pth", work / f"{label}_back.pkl"
+        t0 = time.monotonic()
+        migrate_main([str(run / "last.ckpt"), str(pth), cfg_path,
+                      "--to_reference"])
+        migrate_main([str(pth), str(pkl), cfg_path])
+        seconds = time.monotonic() - t0
+        kernel.launches = 0
+        own, _ = load_trained_agent(str(run), dev)
+        back = _run_agent(run, work, f"{label}_from_pth", checkpoint=pkl)
+        x = np.random.default_rng(18).normal(
+            size=(128, *sample)).astype(np.float32)
+        want = make_serving_fn(own.model.eval())(x)
+        got = make_serving_fn(back.model.eval())(x)
+        out[kernel.__name__] = kernel.launches
+        same = np.array_equal(got, want)
+        log(f"[18 reference pth] {label}: last.ckpt -> {pth.name} "
+            f"({pth.stat().st_size / 1e6:.1f} MB) -> {pkl.name} in "
+            f"{seconds:.2f}s; served at 128 from the .pkl vs the run's own: "
+            f"{'bit-equal' if same else _max_diff(got, want)}; "
+            f"{kernel.__name__} launches {kernel.launches}")
+        if not same or kernel.launches < 2:
+            raise AssertionError(f"{label}: the .pth round trip changed the "
+                                 f"served logits")
+        own.finalize()
+        back.finalize()
+    return out
+
+
 def _record(r):
     return {k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                               "bound_by", "library_ms")}
@@ -2100,7 +2386,7 @@ def main() -> int:
 
 
 def _phases(dev, card: str, cfgs, work: Path) -> int:
-    """Phases 1-15; the training runs stay under ``work`` for 13-15."""
+    """Phases 1-18; the training runs stay under ``work`` for 13-18."""
     from protoasnet_tpu_torch.ops import fused_c2p1d_cuda as fused_mod
     from protoasnet_tpu_torch.ops import l2_min_cuda as l2_mod
     from protoasnet_tpu_torch.ops import roi_cosine_cuda as roi_mod
@@ -2136,7 +2422,7 @@ def _phases(dev, card: str, cfgs, work: Path) -> int:
     launches["roi_cosine_cuda"] += train_counts["roi_cosine_cuda"]
     backward = phase_head_grad(dev)
     phase_train_step_vs_cpu(dev, cfgs[VIDEO["label"]])
-    phase_train_rate(dev, cfgs[VIDEO["label"]])
+    train_rate = phase_train_rate(dev, cfgs[VIDEO["label"]])
     # the 2-D family's training: each path with its kernel's counts set to
     # 0 just before it and read just after it
     l2_backward = phase_l2_grad(dev)
@@ -2166,6 +2452,16 @@ def _phases(dev, card: str, cfgs, work: Path) -> int:
     launches["roi_cosine_cuda"] += phase_tune(
         dev, train_counts["run"].parent / "flagship_bundle.zip",
         rates[VIDEO["label"]][128])
+    # the training loop's instrumentation, remat and the reference's .pth:
+    # each path with its kernel's count set to 0 just before it and read
+    # just after
+    launches["roi_cosine_cuda"] += phase_instrumentation(
+        dev, cfgs[VIDEO["label"]], train_counts, work,
+        rates[VIDEO["label"]][128], train_rate)
+    launches["roi_cosine_cuda"] += phase_remat(dev, cfgs[VIDEO["label"]])
+    for name, count in phase_reference_pth(dev, train_counts, ppnet_run,
+                                           work).items():
+        launches[name] += count
     print(card)
     print(json.dumps({"kernels": [
         dict(name="roi_cosine_cuda", route="cuda", source=roi_mod.SOURCE,

@@ -12,14 +12,27 @@ Module names follow the JAX package's parameter tree (``stem_spatial``,
 to one key. The stem is the plain (1,7,7)/stride-(1,2,2) conv; the JAX
 package's space-to-depth stem is a TPU rewrite of the same conv and keeps
 this kernel layout.
+
+``remat=True`` (the config's ``model.remat``) checkpoints each block in a
+train-mode forward that records a graph: the block's activations are not
+kept, and ``backward()`` runs its forward again
+(``torch.utils.checkpoint``, non-reentrant), as the JAX trunk wraps each
+block in ``nn.remat``. The recompute runs under ``own_bn_stats``, so a
+train step updates each BatchNorm's running statistics and
+``num_batches_tracked`` once, as without remat. Eval-mode and no-grad
+forwards (serving, push) run the blocks as they are; the parameters and
+the state_dict are the same either way.
 """
 
 from __future__ import annotations
 
+from contextlib import nullcontext
+
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
-from protoasnet_tpu_torch.models.norm import BatchNorm
+from protoasnet_tpu_torch.models.norm import BatchNorm, own_bn_stats
 
 __all__ = ["R2Plus1D18", "Conv2Plus1D", "BasicBlock2Plus1D", "midplanes"]
 
@@ -74,8 +87,9 @@ class BasicBlock2Plus1D(nn.Module):
 class R2Plus1D18(nn.Module):
     """Truncatable R(2+1)D-18 trunk. (N, 3, T, H, W) -> (N, C, T', H', W')."""
 
-    def __init__(self, last_layer_num: int = -3):
+    def __init__(self, last_layer_num: int = -3, remat: bool = False):
         super().__init__()
+        self.remat = bool(remat)
         # children = [stem, layer1, layer2, layer3, layer4, avgpool, fc]
         kept = 7 + last_layer_num if last_layer_num < 0 else last_layer_num
         n_stages = kept - 1
@@ -102,6 +116,15 @@ class R2Plus1D18(nn.Module):
     def forward(self, x):
         x = torch.relu(self.stem_bn1(self.stem_spatial(x)))
         x = torch.relu(self.stem_bn2(self.stem_temporal(x)))
+        remat = self.remat and self.training and torch.is_grad_enabled()
         for name in self.layer_names:
-            x = getattr(self, name)(x)
+            block = getattr(self, name)
+            if remat:
+                # the blocks draw no random numbers: no RNG state to keep
+                x = checkpoint(block, x, use_reentrant=False,
+                               preserve_rng_state=False,
+                               context_fn=lambda b=block: (nullcontext(),
+                                                           own_bn_stats(b)))
+            else:
+                x = block(x)
         return x

@@ -1,9 +1,12 @@
 """Model builder: config dict -> ``PPNet`` or ``XProtoNet`` on a device.
 
 The names of the JAX package's registry: ``ProtoPNet`` (PPNet),
-``XProtoNet`` (image) and ``Video_XProtoNet``. Backbones that are not
-ported yet (DenseNet, VGG, r3d_18) raise ``NotImplementedError``
-(ROADMAP.md).
+``XProtoNet`` (image) and ``Video_XProtoNet``, on the R(2+1)D-18 video
+trunk and the 2-D ResNets. Every key of the shipped configs' ``model``
+section is read: ``model.remat`` checkpoints the video trunk's blocks in
+training (``backbones/r2plus1d.py``; the 2-D trunks ignore it, as the JAX
+package's do). Backbones that are not ported yet (DenseNet, VGG, r3d_18)
+raise ``NotImplementedError`` (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -67,7 +70,8 @@ def build_model(model_config: Dict[str, Any],
             base_architecture=base_arch,
             backbone_last_layer_num=int(
                 model_config.get("backbone_last_layer_num", -3)),
-            dtype=_DTYPES[dtype_name])
+            dtype=_DTYPES[dtype_name],
+            remat=bool(model_config.get("remat", False)))
     model.reset_parameters(torch.Generator().manual_seed(int(seed)))
     return model.to(dev).eval()
 

@@ -34,7 +34,8 @@ import numpy as np
 import torch
 from torch import nn
 
-__all__ = ["jax_to_state_dict", "state_dict_from_jax", "load_jax_variables",
+__all__ = ["jax_to_state_dict", "state_dict_to_jax", "state_dict_from_jax",
+           "load_jax_variables",
            "adam_state_from_jax", "accumulator_state_from_jax"]
 
 Array = Union[np.ndarray, torch.Tensor]
@@ -98,6 +99,46 @@ def jax_to_state_dict(params: Mapping[str, Any],
             raise KeyError(f"unknown JAX batch stat {'/'.join(path)}")
         sd[".".join(mods) + "." + _STATS[name]] = arr
     return sd
+
+
+_KERNEL_AXES = {5: (2, 3, 4, 1, 0), 4: (2, 3, 1, 0), 2: (1, 0)}
+
+
+def state_dict_to_jax(sd: Mapping[str, Array]
+                      ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """The inverse of ``jax_to_state_dict``: the port's state_dict ->
+    (params, batch_stats), nested dicts of numpy arrays in the JAX layout
+    (``num_batches_tracked`` has no JAX counterpart and is dropped)."""
+    params: Dict[str, Any] = {}
+    stats: Dict[str, Any] = {}
+
+    def put(tree, path, arr):
+        for k in path[:-1]:
+            tree = tree.setdefault(k, {})
+        tree[path[-1]] = arr
+
+    inv_stats = {v: k for k, v in _STATS.items()}
+    for key, val in sd.items():
+        arr = (val.detach().cpu().numpy() if isinstance(val, torch.Tensor)
+               else np.asarray(val))
+        *mods, name = key.split(".")
+        if name == "num_batches_tracked":
+            continue
+        if not mods:
+            put(params, [name], arr)
+        elif name in inv_stats:
+            put(stats, [*mods, inv_stats[name]], arr)
+        elif name == "bias":
+            put(params, [*mods, "bias"], arr)
+        elif name == "weight" and arr.ndim == 1:  # BatchNorm
+            put(params, [*mods, "scale"], arr)
+        elif name == "weight" and arr.ndim in _KERNEL_AXES:
+            put(params, [*mods, "kernel"],
+                np.ascontiguousarray(arr.transpose(_KERNEL_AXES[arr.ndim])))
+        else:
+            raise KeyError(f"no JAX counterpart for {key} "
+                           f"{tuple(arr.shape)}")
+    return params, stats
 
 
 def state_dict_from_jax(model: nn.Module, params: Mapping[str, Any],

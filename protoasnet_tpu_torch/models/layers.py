@@ -8,6 +8,7 @@ follow the JAX parameter tree for the weight bridge.
 
 from __future__ import annotations
 
+import contextlib
 from typing import List, Tuple
 
 import numpy as np
@@ -57,7 +58,10 @@ def init_weights_(model: nn.Module, generator: torch.Generator) -> None:
 
 
 def bf16_autocast(x: torch.Tensor, dtype: torch.dtype):
-    """bf16 autocast on ``x``'s device when the model's dtype is bf16."""
+    """bf16 autocast on ``x``'s device when the model's dtype is bf16; none
+    on the ``meta`` device, where only shapes (and FLOPs) are followed."""
+    if x.device.type == "meta":
+        return contextlib.nullcontext()
     return torch.autocast(x.device.type, dtype=torch.bfloat16,
                           enabled=dtype == torch.bfloat16)
 

@@ -37,7 +37,7 @@ class XProtoNet(nn.Module):
     def __init__(self, prototype_shape: Sequence[int], num_classes: int,
                  base_architecture: str = "resnet2p1d_18",
                  backbone_last_layer_num: int = -3,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, remat: bool = False):
         super().__init__()
         p, d = int(prototype_shape[0]), int(prototype_shape[1])
         self.prototype_shape = tuple(int(s) for s in prototype_shape)
@@ -46,8 +46,9 @@ class XProtoNet(nn.Module):
         # None: the CUDA kernel on the card, the plain head on the CPU;
         # "torch": the plain head everywhere (reference runs only)
         self.head_impl: Optional[str] = None
-        self.cnn_backbone = make_backbone(base_architecture,
-                                          last_layer_num=backbone_last_layer_num)
+        self.cnn_backbone = make_backbone(
+            base_architecture, last_layer_num=backbone_last_layer_num,
+            remat=remat)
         c = self.cnn_backbone.out_channels
         self.add_on_layers = AddOnLayers(c, d)
         self.occurrence_module = OccurrenceModule(c, d, p)

@@ -39,6 +39,7 @@ import torch
 
 from protoasnet_tpu_torch.ops.cuda_build import load_library
 from protoasnet_tpu_torch.ops.l2_min import l2_min_backward, l2_min_torch
+from protoasnet_tpu_torch.utils.flops import kernel_flops
 
 __all__ = ["l2_min_cuda", "L2MinFunction", "plan", "staging_aligned",
            "active_clusters", "SOURCE", "REPLACES"]
@@ -138,6 +139,8 @@ def _launch(x3: torch.Tensor, prototypes: torch.Tensor
                            + lib.l2_min_error_string(err).decode())
     with _count_lock:  # a reload warms up on a second thread
         l2_min_cuda.launches += 1
+    # the plain version's product, for count_flops (ctypes is unseen)
+    kernel_flops("l2_min_cuda", 2.0 * n * s * p * d)
     return dist, min_d
 
 

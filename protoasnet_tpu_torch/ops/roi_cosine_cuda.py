@@ -36,6 +36,7 @@ import torch
 from protoasnet_tpu_torch.ops.cuda_build import load_library
 from protoasnet_tpu_torch.ops.roi_cosine import (roi_cosine_backward,
                                                  roi_cosine_torch)
+from protoasnet_tpu_torch.utils.flops import kernel_flops
 
 __all__ = ["roi_cosine_cuda", "RoiCosineFunction", "plan", "staging_aligned",
            "smem_bytes",
@@ -138,6 +139,8 @@ def _launch(occ2: torch.Tensor, feat2: torch.Tensor,
                            + lib.roi_cosine_error_string(err).decode())
     with _count_lock:  # a reload warms up on a second thread
         roi_cosine_cuda.launches += 1
+    # the plain version's product, for count_flops (ctypes is unseen)
+    kernel_flops("roi_cosine_cuda", 2.0 * n * s * p * d)
     return roi, sim
 
 

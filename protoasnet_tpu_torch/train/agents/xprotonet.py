@@ -9,8 +9,16 @@
   (``train/optim.py::StageOptimizers``), ``ReduceLROnPlateau`` for joint
   and for last.
 
-Each epoch's metrics go through the host: one device -> host copy per
-step (the JAX package's ``on_device_metrics: false`` path).
+The epoch loop is the JAX package's: with ``train.on_device_metrics``
+(default true) each step's outputs are written into device buffers and
+copied to the host once at the epoch's end (``train/device_metrics.py``),
+with no per-batch tracker rows; ``false``, and always for val_push and
+test (their prediction CSVs need per-sample metadata), each step's loss
+terms, logits and similarities are copied to the host and logged per
+batch. A ``StepTimer`` logs the data / step / host_metrics breakdown of
+every epoch, and a ``torch.profiler`` trace is written to ``profile_dir``
+(or ``$PROTOASNET_PROFILE_DIR``) for the training epoch ``profile_epoch``
+(default 1; ``utils/profiling.py``).
 
 Both agents explain: ``explain_local`` (``explain/local.py``: one sweep of
 the push step over the eval split, ranked panels), ``explain_global`` (a
@@ -37,9 +45,11 @@ from protoasnet_tpu_torch.train.agents.base import (BaseAgent,
                                                    StagedTraining, stage_lrs)
 from protoasnet_tpu_torch.train.aggregate import (aggregate_predictions,
                                                   write_csv)
+from protoasnet_tpu_torch.train.device_metrics import DeviceEpochBuffer
 from protoasnet_tpu_torch.train.optim import (GROUPS, GradAccumulator,
                                               GroupAdam, make_lr_scheduler)
 from protoasnet_tpu_torch.train.steps import make_xprotonet_steps
+from protoasnet_tpu_torch.utils.profiling import StepTimer, trace
 
 __all__ = ["XProtoNetE2EAgent", "XProtoNetStagedAgent"]
 
@@ -123,29 +133,68 @@ class _XProtoNetAgentCommon(BaseAgent):
         t0 = time.time()
         pred_log = []
         epoch_steps = len(loader)
-        for batch in loader:
-            if is_train:
-                m = train_step(batch["cine"], batch["target_dev"],
-                               batch["valid_dev"], self._lrs(),
-                               generator=self.generator)
-                self.current_iteration += 1
-            else:
-                m = eval_step(batch["cine"], batch["target_dev"],
-                              batch["valid_dev"], generator=self.generator)
-            # one device -> host copy per step
-            loss_terms = {k: float(v) for k, v in m.items()
-                          if k.startswith("loss")}
-            logits = m["logits"].float().cpu().numpy()
-            stats = metrics.update(
-                logits, batch["target_AS"], batch["valid"],
-                similarities=m["similarities"].float().cpu().numpy(),
-                loss_terms=loss_terms)
-            self.tracker.log({
-                f"batch_{mode}/step": epoch * epoch_steps + batch["step"],
-                **{f"batch_{mode}/{k}": v for k, v in loss_terms.items()},
-                **{f"batch_{mode}/{k}": v for k, v in stats.items()}})
-            if mode in ("val_push", "test"):
-                pred_log.append(self.pred_log_columns(batch, logits))
+        profile_dir = (self.config.get("profile_dir")
+                       or os.environ.get("PROTOASNET_PROFILE_DIR"))
+        do_trace = (is_train and profile_dir
+                    and epoch == int(self.config.get("profile_epoch", 1)))
+        # val_push/test keep the host path: their CSVs need per-sample
+        # metadata; the device path logs no per-batch tracker rows
+        on_device = (bool(self.train_config.get("on_device_metrics", True))
+                     and mode not in ("val_push", "test"))
+        dev_buf = None
+        timer = StepTimer()
+        with trace(profile_dir if do_trace else None):
+            it = iter(loader)
+            while True:
+                with timer.phase("data"):
+                    batch = next(it, None)
+                if batch is None:
+                    break
+                with timer.phase("step"):
+                    if is_train:
+                        m = train_step(batch["cine"], batch["target_dev"],
+                                       batch["valid_dev"], self._lrs(),
+                                       generator=self.generator)
+                        self.current_iteration += 1
+                    else:
+                        m = eval_step(batch["cine"], batch["target_dev"],
+                                      batch["valid_dev"],
+                                      generator=self.generator)
+                with timer.phase("host_metrics"):
+                    if on_device:
+                        if dev_buf is None:
+                            dev_buf = DeviceEpochBuffer(
+                                n_batches=epoch_steps,
+                                batch_size=m["logits"].shape[0],
+                                num_logits=m["logits"].shape[1],
+                                num_prototypes=m["similarities"].shape[1],
+                                loss_names=sorted(k for k in m
+                                                  if k.startswith("loss")),
+                                device=m["logits"].device)
+                        dev_buf.update(m, batch["target_dev"],
+                                       batch["valid_dev"])
+                        continue
+                    # one device -> host copy per step
+                    loss_terms = {k: float(v) for k, v in m.items()
+                                  if k.startswith("loss")}
+                    logits = m["logits"].float().cpu().numpy()
+                    stats = metrics.update(
+                        logits, batch["target_AS"], batch["valid"],
+                        similarities=m["similarities"].float().cpu().numpy(),
+                        loss_terms=loss_terms)
+                    self.tracker.log({
+                        f"batch_{mode}/step": epoch * epoch_steps
+                        + batch["step"],
+                        **{f"batch_{mode}/{k}": v
+                           for k, v in loss_terms.items()},
+                        **{f"batch_{mode}/{k}": v for k, v in stats.items()}})
+                    if mode in ("val_push", "test"):
+                        pred_log.append(self.pred_log_columns(batch, logits))
+            if dev_buf is not None:
+                with timer.phase("host_metrics"):
+                    dev_buf.finalize(metrics)
+        timer.log(prefix=f"{mode} e{epoch} ")
+        self.epoch_timer = timer  # the last epoch's breakdown
         summary = metrics.compute()
         self._epoch_log(epoch, mode, summary, time.time() - t0)
 

@@ -31,34 +31,10 @@ from protoasnet_tpu_torch.losses.bundle import LossBundle
 from protoasnet_tpu_torch.losses.losses import (affine_batch,
                                                 sample_affine_params)
 from protoasnet_tpu_torch.models.layers import prototype_class_identity
+from protoasnet_tpu_torch.models.norm import own_bn_stats
 from protoasnet_tpu_torch.train.optim import GradAccumulator, GroupAdam
 
-__all__ = ["make_xprotonet_steps", "make_protopnet_steps", "own_bn_stats"]
-
-
-class own_bn_stats:
-    """Within the block, each BatchNorm of ``model`` updates copies of its
-    running statistics; on exit the originals are put back, untouched. The
-    tensors are swapped, not copied into: autograd may hold the originals
-    for the backward of an earlier forward."""
-
-    def __init__(self, model: nn.Module):
-        self.bns = [m for m in model.modules()
-                    if isinstance(m, nn.modules.batchnorm._BatchNorm)]
-        self.saved = []
-
-    def __enter__(self):
-        self.saved = [(m.running_mean, m.running_var, m.num_batches_tracked)
-                      for m in self.bns]
-        for m, bufs in zip(self.bns, self.saved):
-            (m.running_mean, m.running_var,
-             m.num_batches_tracked) = (b.clone() for b in bufs)
-        return self
-
-    def __exit__(self, *exc):
-        for m, bufs in zip(self.bns, self.saved):
-            m.running_mean, m.running_var, m.num_batches_tracked = bufs
-        return False
+__all__ = ["make_xprotonet_steps", "make_protopnet_steps"]
 
 
 def _wide(t: torch.Tensor) -> torch.Tensor:

@@ -149,17 +149,15 @@ def test_kernel_on_views_off_16_bytes(dev, shape, dtype):
 
 def _device_kernels(fn):
     """Names and counts of the kernels one call of ``fn`` runs on the
-    device (``torch.profiler``, as chip_smoke.py's kernel_device_ms)."""
-    from torch.profiler import ProfilerActivity, profile
+    device, from ``utils/profiling.py::device_window`` (as chip_smoke.py's
+    kernel_device_ms), which raises ``EmptyDeviceWindow`` when the
+    profiler dropped every device record of the window (ROADMAP.md §3, F4)
+    instead of returning an empty table."""
+    from protoasnet_tpu_torch.utils.profiling import device_window
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return {e.key: e.count for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA}
+    window = device_window(fn)
+    assert window.launch_calls >= 1
+    return window.kernels()
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1030,3 +1028,41 @@ def test_tune_on_the_card_at_two_batches(dev, tmp_path):
         assert r["samples_per_sec"] > 0
     assert report["recommended_max_batch"] in (2, 4)
     assert roi_cosine_cuda.launches >= before + 2 * (1 + 2 + 18)
+
+
+def test_flop_count_on_the_card_equals_the_cpu_count(dev):
+    """The hand kernels report their products where they launch, so the
+    forward and the train step count the same FLOPs on the card as on the
+    CPU (where the plain heads' matmuls are counted)."""
+    from protoasnet_tpu_torch.losses.bundle import LossBundle
+    from protoasnet_tpu_torch.models.builder import build_model
+    from protoasnet_tpu_torch.train.optim import (GROUPS, GradAccumulator,
+                                                  GroupAdam)
+    from protoasnet_tpu_torch.train.steps import make_xprotonet_steps
+    from protoasnet_tpu_torch.utils.flops import flops_by_op
+
+    cfg = {"name": "Video_XProtoNet", "base_architecture": "resnet2p1d_18",
+           "backbone_last_layer_num": -3, "prototype_shape": (8, 64, 1, 1, 1),
+           "num_classes": 4, "img_size": 32}
+    crit = {"CeLossAbstain": {"loss_weight": 1, "ab_weight": 0.3,
+                              "ab_logitpath": "joined", "reduction": "mean"},
+            "ClusterRoiFeat": {"loss_weight": 0.8, "reduction": "mean"},
+            "trans_occurrence": {"loss_weight": 0.05, "reduction": "mean"}}
+    x = torch.from_numpy(np.random.default_rng(2).normal(
+        size=(2, 8, 32, 32, 3)).astype(np.float32))
+    counts = []
+    for device in (torch.device("cpu"), dev):
+        model = build_model(cfg, device=device)
+        opt = GroupAdam(model, {g: 1e-3 for g in GROUPS})
+        step = make_xprotonet_steps(
+            model, LossBundle(crit, num_classes=4, abstain_class=True), opt,
+            GradAccumulator(opt.params, 2))[0]
+        xd = x.to(device)
+        with torch.no_grad():
+            fwd = flops_by_op(lambda: model.eval()(xd))
+        train = flops_by_op(lambda: step(
+            xd, torch.tensor([0, 2], device=device),
+            torch.tensor([True, True], device=device),
+            {g: 1e-4 for g in GROUPS}, affine=(5.0, 1.1)))
+        counts.append((sum(fwd.values()), sum(train.values())))
+    assert counts[0] == counts[1], counts

@@ -65,7 +65,9 @@ def test_port_imports_no_jax():
                  "tracking.trackers", "utils.io", "utils.run",
                  "models.pretrained", "main", "explain.local",
                  "explain.__main__", "serve", "models.from_jax",
-                 "client"):
+                 "client", "utils.preprocess", "utils.profiling",
+                 "utils.flops", "models.surgery", "models.migrate",
+                 "train.device_metrics"):
         assert "protoasnet_tpu_torch." + name in out["modules"], name
     assert out["bad"] == []
 
