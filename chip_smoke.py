@@ -4,8 +4,9 @@ ProtoASNet on one NVIDIA GPU, through the hand-written CUDA kernels, the
 experiment entry points of the R(2+1)D block kernels, the training
 paths of the video flagship, the ProtoPNet baseline and the image
 ProtoASNet, the trained runs explained, exported, served live, reloaded
-and tuned, the training loop's instrumentation, ``model.remat`` and the
-reference's ``.pth`` both ways.
+and tuned, the training loop's instrumentation, ``model.remat``, the
+reference's ``.pth`` both ways, the flagship served as w8a8 int8, and the
+last trunks (r3d_18, VGG, DenseNet).
 
     python3 chip_smoke.py
 
@@ -148,7 +149,26 @@ raises and the script exits non-zero without printing a result):
    back (``protoasnet_tpu_torch.models.migrate``, ``--to_reference`` and
    then to a ``.pkl``), loaded by the port's agent through
    ``model.checkpoint_path`` and served on the card at 128: logits
-   bit-equal to the run's own, each kernel's launches counted.
+   bit-equal to the run's own, each kernel's launches counted;
+19. w8a8 int8 serving: phase 7's run through ``python -m
+   protoasnet_tpu_torch.serve export --int8 --calib_batches 4``, the
+   bundle served over HTTP at ``max_batch`` 128 on 128 clips: (a) every
+   int8 conv geometry of the flagship at its batch-128 shape, the card's
+   int32 sums (``torch._int_mm`` GEMMs) bit-equal to the plain version's
+   on seeded codes; (b) the served logits within 2e-2 * max(1, |logits|)
+   of the same bundle on the CPU; (c) against phase 13's bf16 bundle on
+   the same clips, max relative error < 0.08, cosine > 0.995, argmax
+   agreement >= 0.75; (d) ``roi_cosine_cuda``'s launches and the int8
+   GEMMs counted (> 0); (e) clips/s and peak allocated memory of the int8
+   and the bf16 forwards at 128 beside phase 5's rate, and each int8
+   conv's ms beside bf16 cuDNN's at the same shape; (f) ``serve_live
+   --int8`` of the run answers one request bit-equal to the int8 bundle;
+20. the last trunks at full width with seeded weights, fp32: ``r3d_18``
+   in the flagship's Video_XProtoNet (32x112x112), ``vgg16_bn`` and
+   ``densenet121`` in ProtoPNet's PPNet (224x224): the card's forward at
+   batch 8 (TF32 off) within 1e-3 * max(1, |logits|) of the CPU's, and
+   the w8a8-quantised forward within 2e-2 * max(1, |logits|) of the
+   CPU's, each head kernel's launches counted (> 0).
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or of the JAX
@@ -2364,6 +2384,318 @@ def phase_reference_pth(dev, train, ppnet_run: Path, work: Path):
     return out
 
 
+# phases 19-20: w8a8 int8 serving of the flagship, the last trunks
+INT8_BATCH = 128  # the daemon's default bucket
+INT8_CPU_CLIPS = 2  # the served clips held against the bundle on the CPU
+NEW_TRUNKS = (  # (trunk, config to take the model from, head kernel)
+    ("r3d_18", VIDEO, "roi_cosine_cuda"),
+    ("vgg16_bn", PPNET, "l2_min_cuda"),
+    ("densenet121", PPNET, "l2_min_cuda"),
+)
+NEW_TRUNK_BATCH = 8
+
+
+def _int8_geometries(model, x):
+    """{(input shape, weight shape, stride, padding): (module name, the
+    module, the input's strides)} of every ``QuantConv`` call of
+    ``model``'s forward on ``x``."""
+    from protoasnet_tpu_torch.quant import QuantConv
+
+    seen, hooks = {}, []
+    for name, m in model.named_modules():
+        if isinstance(m, QuantConv):
+            def hook(mod, args, name=name):
+                key = (tuple(args[0].shape), tuple(mod.w_q.shape),
+                       mod.stride, mod.padding)
+                seen.setdefault(key, (name, mod, args[0].stride()))
+            hooks.append(m.register_forward_pre_hook(hook))
+    with torch.inference_mode():
+        model(x)
+    for h in hooks:
+        h.remove()
+    return seen
+
+
+def _int8_conv_checks(dev, geometries):
+    """19 (a) and (e): each int8 conv geometry at its served shape, on
+    seeded int8 codes: the card version's int32 sums bit-equal to the
+    plain version's (float64 on the card, 16 samples at a time); the
+    QuantConv's ms (quantise, GEMMs, dequantise to bf16, on its
+    channels-last input) beside bf16 cuDNN's conv at the same shape
+    (NCDHW, as the bf16 model runs), and where the int8 ms go: the
+    quantisation alone, the GEMMs alone (one chunk's ``_int_mm`` on random
+    columns, times the chunks), the columns and the int32 copy-out (the
+    int32 conv's ms less the GEMMs), and the dequantisation less the int32
+    copy-out it replaces (the conv with the dequantising epilogue less the
+    int32 conv; negative where writing bf16 costs less than writing
+    int32). Returns {name: (int8 ms, cuDNN ms, quantise, columns, GEMMs,
+    dequantise)}."""
+    from torch.nn import functional as F
+
+    from protoasnet_tpu_torch.ops.int8_conv import (int8_conv_cuda,
+                                                    int8_conv_torch, int_mm,
+                                                    plan, quantize)
+
+    g = torch.Generator(device=dev).manual_seed(19)
+    out = {}
+    for (shape, wshape, stride, pad), (name, mod, strides) in \
+            geometries.items():
+        xq = torch.randint(-127, 128, shape, generator=g, device=dev,
+                           dtype=torch.int8)
+        card = int8_conv_cuda(xq, mod.w_q, stride, pad)
+        bad = 0
+        for b0 in range(0, shape[0], 16):
+            plain = int8_conv_torch(xq[b0:b0 + 16], mod.w_q, stride, pad)
+            bad += int((plain != card[b0:b0 + 16]).sum())
+        del card, plain
+        if bad:
+            raise AssertionError(f"int8 conv {name} {shape}: {bad} int32 "
+                                 f"sums differ from the plain version")
+        x = torch.empty_strided(shape, strides, device=dev,
+                                dtype=torch.bfloat16).normal_(generator=g)
+        xb = x.contiguous()
+        w = torch.randn(wshape, generator=g, device=dev,
+                        dtype=torch.bfloat16)
+        conv = F.conv3d if len(shape) == 5 else F.conv2d
+        pl = plan(shape, wshape, stride, pad)
+        cols = torch.randint(-127, 128, (pl.step * pl.rows, pl.kk),
+                             generator=g, device=dev, dtype=torch.int8)
+        w2 = torch.randint(-127, 128, (pl.op, pl.kk), generator=g,
+                           device=dev, dtype=torch.int8)
+        chunks = -(-shape[0] // pl.step)
+        with torch.inference_mode():
+            ms8 = time_ms(lambda: mod(x), iters=3, warmup=1)
+            ms16 = time_ms(lambda: conv(xb, w, stride=stride, padding=pad),
+                           iters=3, warmup=1)
+            q_ms = time_ms(lambda: quantize(x, mod.inv_scale), iters=3,
+                           warmup=1)
+            sums_ms = time_ms(lambda: int8_conv_cuda(
+                xq, mod.w_q, stride, pad), iters=3, warmup=1)
+            deq_ms = time_ms(lambda: int8_conv_cuda(
+                xq, mod.w_q, stride, pad,
+                lambda y: mod._dequantise(y, torch.bfloat16)), iters=3,
+                warmup=1)
+            gemm_ms = chunks * time_ms(lambda: int_mm(cols, w2.t()),
+                                       iters=3, warmup=1)
+        parts = (q_ms, sums_ms - gemm_ms, gemm_ms, deq_ms - sums_ms)
+        out[name] = (ms8, ms16, *parts)
+        ops = 2 * shape[0] * pl.rows * pl.kk * pl.op
+        log(f"[19 int8 conv] {name}: x {shape} w {wshape} stride {stride} "
+            f"pad {pad}: int32 sums bit-equal to the plain version; "
+            f"{ms8:.3f} ms (int8) vs {ms16:.3f} ms (bf16 cuDNN); int8: "
+            f"quantise {parts[0]:.3f}, columns + int32 copy-out "
+            f"{parts[1]:.3f}, GEMMs {parts[2]:.3f} ({chunks} x M="
+            f"{pl.step * pl.rows} K={pl.kk} N={pl.op}, "
+            f"{ops / parts[2] / 1e9:.1f} TOP/s), dequantise less the int32 "
+            f"copy-out {parts[3]:.3f}")
+        del x, xb, w, xq, cols, w2
+        torch.cuda.empty_cache()
+    return out
+
+
+def _fidelity(fp: np.ndarray, q: np.ndarray):
+    """tests/test_quant.py's measures: max relative error, cosine, argmax
+    agreement."""
+    fp, q = fp.astype(np.float64), q.astype(np.float64)
+    rel = np.abs(fp - q).max() / (np.abs(fp).max() + 1e-9)
+    cos = (fp * q).sum() / (np.linalg.norm(fp) * np.linalg.norm(q) + 1e-12)
+    return rel, cos, (fp.argmax(1) == q.argmax(1)).mean()
+
+
+def _rate_and_peak(model, x):
+    """(samples/s, peak allocated GiB) of ``model``'s forward on the
+    device-resident batch ``x``."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        ms = time_ms(lambda: model(x), iters=3, warmup=1)
+    return len(x) / ms * 1e3, torch.cuda.max_memory_allocated() / 2**30
+
+
+def phase_int8(dev, train, work: Path, bf16_rate: float):
+    """19: phase 7's trained flagship run exported with ``python -m
+    protoasnet_tpu_torch.serve export --int8 --calib_batches 4`` (in
+    process) and served at full width. (a) every int8 conv geometry of the
+    flagship at its batch-128 shape: the card version's int32 sums
+    bit-equal to the plain version's on seeded codes; (b) the bundle
+    served over HTTP (``serve_forever``, max_batch 128) on 128 clips: the
+    first ``INT8_CPU_CLIPS`` within 2e-2 * max(1, |logits|) of the same
+    bundle on the CPU; (c) against phase 13's bf16 bundle on the same 128
+    clips, the fidelity limits of tests/test_quant.py (max relative error
+    < 0.08, cosine > 0.995, argmax agreement >= 0.75); (d)
+    ``roi_cosine_cuda``'s launches (and the int8 GEMMs) set to 0 before the
+    served path and read after (> 0); (e) clips/s and peak allocated
+    memory of the int8 and bf16 bundles' forwards at 128 (int8's at most
+    bf16's), beside phase 5's bf16 rate, and each int8 conv's ms beside
+    bf16 cuDNN's, with where the int8 ms go; (f)
+    ``serve_live --int8`` of the run answers one ``ServingClient`` request
+    bit-equal to the int8 bundle on the same padded batch. Returns the
+    served paths' ``roi_cosine_cuda`` launches."""
+    from protoasnet_tpu_torch import server
+    from protoasnet_tpu_torch.client import ServingClient
+    from protoasnet_tpu_torch.ops import int8_conv
+    from protoasnet_tpu_torch.ops.roi_cosine_cuda import roi_cosine_cuda
+    from protoasnet_tpu_torch.serve import (load_bundle_model,
+                                            load_serving_bundle)
+    from protoasnet_tpu_torch.serve import main as serve_main
+
+    start = time.monotonic()
+    run = train["run"]
+    bundle = work / "flagship_int8.zip"
+    t0 = time.monotonic()
+    serve_main(["export", "--run_dir", str(run), "--out", str(bundle),
+                "--int8", "--calib_batches", "4", "--device", dev.type])
+    export_s = time.monotonic() - t0
+    x = np.random.default_rng(19).normal(
+        size=(INT8_BATCH, *CLIP)).astype(np.float32)
+    # (b), (d): the served path, its launches counted
+    roi_cosine_cuda.launches, int8_conv.LAUNCHES = 0, 0
+    with _serving(server.serve_forever, str(bundle), max_batch=INT8_BATCH,
+                  max_delay_ms=2.0, warmup=False, device=dev) as url:
+        served = ServingClient(url, timeout_s=600, retries=0).predict(x)
+    launches, gemms = roi_cosine_cuda.launches, int8_conv.LAUNCHES
+    if served.shape != (INT8_BATCH, 4) or not np.isfinite(served).all():
+        raise AssertionError(f"int8 served logits {served.shape}")
+    if not (launches and gemms):
+        raise AssertionError(f"int8 served path: roi_cosine_cuda launches "
+                             f"{launches}, int8 GEMMs {gemms}")
+    cpu = load_serving_bundle(str(bundle), device="cpu")(
+        x[:INT8_CPU_CLIPS])
+    d_cpu = _max_diff(served[:INT8_CPU_CLIPS], cpu)
+    if d_cpu > 2e-2 * max(1.0, float(np.abs(cpu).max())):
+        raise AssertionError(f"int8 served vs CPU: {d_cpu}")
+    # (c): against phase 13's bf16 bundle on the same clips
+    bf16 = load_serving_bundle(str(run.parent / "flagship_bundle.zip"),
+                               device=dev)(x)
+    rel, cos, agree = _fidelity(bf16, served)
+    log(f"[19 int8] serve export --int8 --calib_batches 4 of phase 7's run "
+        f"in {export_s:.2f}s ({bundle.stat().st_size / 1e6:.1f} MB); "
+        f"{INT8_BATCH} clips served over HTTP (max_batch {INT8_BATCH}): "
+        f"roi_cosine_cuda launches {launches}, int8 GEMMs {gemms}; first "
+        f"{INT8_CPU_CLIPS} vs the bundle on the CPU max abs diff "
+        f"{d_cpu:.3e}; vs phase 13's bf16 bundle: max rel err {rel:.4f}, "
+        f"cosine {cos:.6f}, argmax agreement {agree:.3f}")
+    if not (rel < 0.08 and cos > 0.995 and agree >= 0.75):
+        raise AssertionError(f"int8 fidelity: rel {rel}, cos {cos}, "
+                             f"agreement {agree}")
+    # (a), (e): the int8 convs at their served shapes, rates and memory
+    xd = torch.from_numpy(x).to(dev)
+    model8 = load_bundle_model(str(bundle), dev)[0]
+    geometries = _int8_geometries(model8, xd)
+    convs = _int8_conv_checks(dev, geometries)
+    rate8, peak8 = _rate_and_peak(model8, xd)
+    del model8
+    model16 = load_bundle_model(str(run.parent / "flagship_bundle.zip"),
+                                dev)[0]
+    rate16, peak16 = _rate_and_peak(model16, xd)
+    del model16, xd
+    torch.cuda.empty_cache()
+    if peak8 > peak16:  # the chunks keep int8's transients small
+        raise AssertionError(f"int8 forward peak {peak8:.3f} GiB over "
+                             f"bf16's {peak16:.3f}")
+    sums = [sum(v[i] for v in convs.values()) for i in range(6)]
+    log(f"[19 int8] forward at {INT8_BATCH}: int8 {rate8:.1f} clips/s, "
+        f"peak {peak8:.3f} GiB; bf16 {rate16:.1f} clips/s, peak "
+        f"{peak16:.3f} GiB (phase 5's bf16 forward {bf16_rate:.1f} "
+        f"clips/s); {len(geometries)} int8 conv geometries, summed: int8 "
+        f"{sums[0]:.3f} ms vs bf16 cuDNN {sums[1]:.3f} ms; int8 quantise "
+        f"{sums[2]:.3f}, columns + copy-out {sums[3]:.3f}, GEMMs "
+        f"{sums[4]:.3f}, dequantise less the copy-out {sums[5]:.3f}")
+    # (f): the run served live as int8, bit-equal to the bundle
+    direct = load_serving_bundle(str(bundle), device=dev)
+    roi_cosine_cuda.launches = 0
+    with _serving(server.serve_live, str(run), max_batch=INT8_BATCH,
+                  warmup=False, int8=True, calib_batches=4,
+                  device=dev) as url:
+        live = ServingClient(url, timeout_s=600, retries=0).predict(x[:3])
+    live_launches = roi_cosine_cuda.launches
+    same = np.array_equal(live, _padded(direct, x[:3]))
+    log(f"[19 int8 live] serve_live --int8 --calib_batches 4 of phase 7's "
+        f"run: 3 clips {'bit-equal' if same else 'DIFFER'} to the int8 "
+        f"bundle on the same padded batch; roi_cosine_cuda launches "
+        f"{live_launches}; phase 19 in {time.monotonic() - start:.1f}s")
+    if not same or not live_launches:
+        raise AssertionError(f"int8 live: bit-equal {same}, launches "
+                             f"{live_launches}")
+    return launches + live_launches
+
+
+def _trunk_config(trunk, spec):
+    mcfg = dict(load_model_config(spec)["model"], base_architecture=trunk,
+                dtype="float32")
+    keep = "cnn_backbone" if mcfg["name"] != "ProtoPNet" else "features"
+    return mcfg, keep
+
+
+def phase_new_trunks(dev):
+    """20: the last trunks at full width with seeded weights: ``r3d_18``
+    in the flagship's Video_XProtoNet (32x112x112) and ``vgg16_bn`` and
+    ``densenet121`` in ProtoPNet's PPNet (224x224), fp32. For each, the
+    card's forward at batch ``NEW_TRUNK_BATCH`` (TF32 off) within
+    1e-3 * max(1, |logits|) of the port on the CPU, with its head kernel's
+    launches set to 0 before and read after (> 0); then the model
+    quantised (calibrated on the card on a seeded batch of 4, its trunk's
+    convs) and its int8 forward on the card within 2e-2 * max(1,
+    |logits|) of the same qstate on the CPU, launches counted the same way.
+    Returns {kernel: launches}."""
+    from protoasnet_tpu_torch.models.builder import build_model
+    from protoasnet_tpu_torch.ops import int8_conv
+    from protoasnet_tpu_torch.quant import (build_qstate,
+                                            calibrate_act_scales,
+                                            quantized_model)
+
+    counters = _counters()
+    out = {name: 0 for name in counters}
+    rng = np.random.default_rng(20)
+    for trunk, spec, kernel in NEW_TRUNKS:
+        t0 = time.monotonic()
+        mcfg, keep = _trunk_config(trunk, spec)
+        card = build_model(mcfg, device=dev, seed=0)
+        cpu = build_model(mcfg, device="cpu", seed=0)
+        x = torch.from_numpy(rng.normal(
+            size=(NEW_TRUNK_BATCH, *spec["sample"])).astype(np.float32))
+        calib = torch.from_numpy(rng.normal(
+            size=(4, *spec["sample"])).astype(np.float32))
+        counter = counters[kernel]
+        with no_tf32(), torch.inference_mode():
+            counter.launches = 0
+            lk = card(x.to(dev))[0].float().cpu()
+            fp_launches = counter.launches
+            lc = cpu(x)[0]
+        d_fp = _max_diff(lk, lc)
+        scale = lc.abs().max().item()
+        qstate = build_qstate(card, calibrate_act_scales(
+            card, [calib.to(dev)], path_filter=lambda p: p[:1] == (keep,)))
+        q_card, q_cpu = quantized_model(card, qstate), \
+            quantized_model(cpu, qstate)
+        with no_tf32(), torch.inference_mode():
+            counter.launches, int8_conv.LAUNCHES = 0, 0
+            qk = q_card(x.to(dev))[0].float().cpu()
+            q_launches, gemms = counter.launches, int8_conv.LAUNCHES
+            qc = q_cpu(x)[0]
+        d_q = _max_diff(qk, qc)
+        q_scale = qc.abs().max().item()
+        out[kernel] += fp_launches + q_launches
+        log(f"[20 trunks] {mcfg['name']} on {trunk} (fp32, batch "
+            f"{NEW_TRUNK_BATCH}, {'x'.join(map(str, spec['sample']))}): "
+            f"card vs CPU max abs diff {d_fp:.3e} (|logits| up to "
+            f"{scale:.3f}); int8 ({len(qstate)} convs of {keep}) card vs "
+            f"CPU {d_q:.3e} (|logits| up to {q_scale:.3f}), int8 GEMMs "
+            f"{gemms}; {kernel} launches {fp_launches} + {q_launches}; "
+            f"{time.monotonic() - t0:.1f}s")
+        if not (fp_launches and q_launches and gemms and qstate):
+            raise AssertionError(f"{trunk}: launches {fp_launches}, "
+                                 f"{q_launches}, GEMMs {gemms}")
+        if not (torch.isfinite(lk).all() and torch.isfinite(qk).all()):
+            raise AssertionError(f"{trunk}: non-finite logits")
+        if d_fp > 1e-3 * max(1.0, scale) or d_q > 2e-2 * max(1.0, q_scale):
+            raise AssertionError(f"{trunk}: card vs CPU fp32 {d_fp}, int8 "
+                                 f"{d_q}")
+        del card, cpu, q_card, q_cpu
+        torch.cuda.empty_cache()
+    return out
+
+
 def _record(r):
     return {k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                               "bound_by", "library_ms")}
@@ -2386,7 +2718,7 @@ def main() -> int:
 
 
 def _phases(dev, card: str, cfgs, work: Path) -> int:
-    """Phases 1-18; the training runs stay under ``work`` for 13-18."""
+    """Phases 1-20; the training runs stay under ``work`` for 13-19."""
     from protoasnet_tpu_torch.ops import fused_c2p1d_cuda as fused_mod
     from protoasnet_tpu_torch.ops import l2_min_cuda as l2_mod
     from protoasnet_tpu_torch.ops import roi_cosine_cuda as roi_mod
@@ -2461,6 +2793,12 @@ def _phases(dev, card: str, cfgs, work: Path) -> int:
     launches["roi_cosine_cuda"] += phase_remat(dev, cfgs[VIDEO["label"]])
     for name, count in phase_reference_pth(dev, train_counts, ppnet_run,
                                            work).items():
+        launches[name] += count
+    # w8a8 int8 serving and the last trunks: each path with its kernels'
+    # counts set to 0 just before it and read just after
+    launches["roi_cosine_cuda"] += phase_int8(dev, train_counts, work,
+                                              rates[VIDEO["label"]][128])
+    for name, count in phase_new_trunks(dev).items():
         launches[name] += count
     print(card)
     print(json.dumps({"kernels": [

@@ -1,12 +1,13 @@
 """Model builder: config dict -> ``PPNet`` or ``XProtoNet`` on a device.
 
 The names of the JAX package's registry: ``ProtoPNet`` (PPNet),
-``XProtoNet`` (image) and ``Video_XProtoNet``, on the R(2+1)D-18 video
-trunk and the 2-D ResNets. Every key of the shipped configs' ``model``
-section is read: ``model.remat`` checkpoints the video trunk's blocks in
-training (``backbones/r2plus1d.py``; the 2-D trunks ignore it, as the JAX
-package's do). Backbones that are not ported yet (DenseNet, VGG, r3d_18)
-raise ``NotImplementedError`` (ROADMAP.md).
+``XProtoNet`` (image) and ``Video_XProtoNet``, on every trunk of the JAX
+package's ``BACKBONE_NAMES`` (``backbones/__init__.py``):
+``Video_XProtoNet`` takes a video trunk (``resnet2p1d_18`` or ``r3d_18``),
+the other two a 2-D one. Every key of the shipped configs' ``model``
+section is read: ``model.remat`` checkpoints the R(2+1)D trunk's blocks in
+training (``backbones/r2plus1d.py``; the other trunks ignore it, as the
+JAX package's do).
 """
 
 from __future__ import annotations

@@ -5,8 +5,11 @@ The weights are looked for in ``$PROTOASNET_PRETRAINED_DIR``,
 ``<arch>.pth``/``.pt``/``-weights.pth`` (or any ``<arch>*.pth``), as the
 JAX package does; nothing is ever downloaded. Without a file the model
 keeps its random init (with a warning). torchvision's names are renamed to
-the port's: ``r2plus1d_18`` for ``resnet2p1d_18``, the ResNets for the 2-D
-trunks; the head stays as initialised.
+the port's, as the JAX package's ``torch_import.py`` converts them:
+``r2plus1d_18`` for ``resnet2p1d_18``, ``r3d_18``, the ResNets, the VGGs
+(``features.N``, walked along the config) and the DenseNets
+(``features.denseblockI.denselayerJ``, ``transitionI``, ``norm0``/``norm5``);
+the head stays as initialised.
 """
 
 from __future__ import annotations
@@ -63,11 +66,57 @@ _RESNET = [
 ]
 
 
+# torchvision r3d_18 (Conv3DSimple blocks) -> the port's R3D18
+_R3D = [
+    (r"^stem\.0\.", "stem_conv."), (r"^stem\.1\.", "stem_bn."),
+    (r"^layer(\d)\.(\d)\.conv(\d)\.0\.", r"layer\1_\2.conv\3."),
+    (r"^layer(\d)\.(\d)\.conv(\d)\.1\.", r"layer\1_\2.bn\3."),
+    (r"^layer(\d)\.(\d)\.downsample\.0\.", r"layer\1_\2.downsample_conv."),
+    (r"^layer(\d)\.(\d)\.downsample\.1\.", r"layer\1_\2.downsample_bn."),
+]
+# torchvision densenet* -> the port's DenseNetFeatures
+_DENSENET = [
+    (r"^features\.denseblock(\d)\.denselayer(\d+)\.",
+     r"denseblock\1_layer\2."),
+    (r"^features\.", ""),
+]
+
+
+def _vgg_rules(arch: str):
+    """torchvision's ``features.N`` of a VGG: the config's walk through the
+    Sequential (conv, [BN,] ReLU; max-pool) gives each index its name."""
+    from protoasnet_tpu_torch.models.backbones.vgg import VGG_CFGS
+
+    bn = arch.endswith("_bn")
+    rules, seq, idx = [], 0, 0
+    for v in VGG_CFGS[arch[:-3] if bn else arch]:
+        if v == "M":
+            seq += 1
+            continue
+        rules.append((rf"^features\.{seq}\.", f"conv{idx}."))
+        if bn:
+            rules.append((rf"^features\.{seq + 1}\.", f"bn{idx}."))
+        seq, idx = seq + (3 if bn else 2), idx + 1
+    return rules
+
+
+def _rules(arch: str):
+    if arch == "resnet2p1d_18":
+        return _R2P1D
+    if arch == "r3d_18":
+        return _R3D
+    if arch.startswith("densenet"):
+        return _DENSENET
+    if arch.startswith("vgg"):
+        return _vgg_rules(arch)
+    return _RESNET
+
+
 def torchvision_to_port(sd: Dict[str, Any], arch: str,
                         keep: Dict[str, torch.Tensor]) -> Dict[str, Any]:
     """torchvision's state dict renamed to the trunk's keys; keys the trunk
     does not have (the classifier, stages past the cut) are dropped."""
-    rules = _R2P1D if arch == "resnet2p1d_18" else _RESNET
+    rules = _rules(arch)
     out = {}
     for k, v in sd.items():
         for pat, rep in rules:

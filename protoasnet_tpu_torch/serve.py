@@ -16,7 +16,12 @@ A trained run (the port's own, or the JAX package's: its flax
 ``last.ckpt`` or a migrated reference ``.pkl``) becomes a bundle through
 ``export``, which rebuilds the run's agent from its training config
 (``config_train.yml``, else another dumped ``config_*.yml``) and its
-``last.ckpt`` (``load_trained_agent``).
+``last.ckpt`` (``load_trained_agent``). ``export --int8`` calibrates the
+backbone convs on ``--calib_batches`` batches of the run's train loader
+(``quant.calibrate_qstate_from_agent``) and writes the w8a8 qstate beside
+the weights (``qstate.npz``, ``"int8": true`` in ``config.json``); the
+bundle then loads as the quantised model (``quant.quantized_model``), so
+``predict``, ``tune`` and the daemon serve int8 as they serve float.
 
 ``tune`` sweeps serving batch sizes for a bundle on the card and
 recommends the daemon's ``--max_batch``, with the JAX package's method
@@ -24,7 +29,8 @@ and JSON (``protoasnet_tpu/serve.py::_tune_cmd``).
 
 CLI:
     python -m protoasnet_tpu_torch.serve export --run_dir <run> \
-        --out b.zip [--uint8_input] [--device cuda]
+        --out b.zip [--uint8_input] [--int8 [--calib_batches 4]] \
+        [--device cuda]
     python -m protoasnet_tpu_torch.serve predict --bundle b.zip \
         --input x.npy [--out logits.npy] [--batch 128] [--device cuda]
     python -m protoasnet_tpu_torch.serve tune --bundle b.zip \
@@ -45,24 +51,24 @@ import torch
 
 from protoasnet_tpu_torch.data.transforms import normalize
 from protoasnet_tpu_torch.models.builder import build_model
+from protoasnet_tpu_torch.quant import (calibrate_qstate_from_agent,
+                                        qstate_from_arrays, qstate_to_arrays,
+                                        quantized_model)
 from protoasnet_tpu_torch.utils.device import resolve_device
 
 __all__ = ["save_serving_bundle", "load_serving_bundle",
            "load_serving_bundle_with_spec", "load_bundle_model",
            "make_serving_fn", "load_trained_agent", "export_run",
-           "recommend", "tune_bundle", "INT8_REFUSAL"]
+           "recommend", "tune_bundle", "serving_model"]
 
 _FORMAT = "protoasnet_tpu_torch.bundle/1"
-# what --int8 gets from every entry point (export, the live server and
-# its reloads) until the w8a8 path is ported
-INT8_REFUSAL = ("--int8: the w8a8 export (quant.py) is not ported yet "
-                "(ROADMAP.md §1 item 5)")
 
 
 def save_serving_bundle(path: str, model: torch.nn.Module,
                         model_config: Dict[str, Any],
                         input_shape: Sequence[int],
-                        uint8_gray: bool = False) -> None:
+                        uint8_gray: bool = False,
+                        qstate: Optional[Dict[str, Any]] = None) -> None:
     """Write ``model``'s weights and config to a one-file bundle.
 
     input_shape: per-sample shape WITHOUT the batch dim: (T, H, W, 3) for
@@ -70,7 +76,8 @@ def save_serving_bundle(path: str, model: torch.nn.Module,
     models, e.g. (224, 224, 3). uint8_gray: the bundle takes raw grayscale
     uint8 frames, (T, H, W) or (H, W) (input_shape minus the channel dim),
     and applies the eval transform (/255, normalise, gray -> 3 channels) on
-    the device.
+    the device. qstate: the w8a8 state of ``quant.build_qstate`` (the
+    bundle then serves the quantised model); ``model`` is the float one.
     """
     input_shape = tuple(int(s) for s in input_shape)
     rank = 4 if model_config["name"] == "Video_XProtoNet" else 3
@@ -79,13 +86,18 @@ def save_serving_bundle(path: str, model: torch.nn.Module,
                          f"{rank} with 3 trailing channels, not input_shape "
                          f"{input_shape}")
     meta = {"format": _FORMAT, "model": dict(model_config),
-            "input_shape": list(input_shape), "uint8_gray": bool(uint8_gray)}
+            "input_shape": list(input_shape), "uint8_gray": bool(uint8_gray),
+            "int8": qstate is not None}
     buf = io.BytesIO()
     np.savez(buf, **{k: v.detach().cpu().numpy()
                      for k, v in model.state_dict().items()})
     with zipfile.ZipFile(path, "w") as z:
         z.writestr("config.json", json.dumps(meta, indent=1))
         z.writestr("weights.npz", buf.getvalue())
+        if qstate is not None:
+            qbuf = io.BytesIO()
+            np.savez(qbuf, **qstate_to_arrays(qstate))
+            z.writestr("qstate.npz", qbuf.getvalue())
 
 
 def _device_forward(model: torch.nn.Module, uint8_gray: bool = False
@@ -123,19 +135,24 @@ def load_bundle_model(path: str,
                       device: Optional[Union[str, torch.device]] = None
                       ) -> Tuple[torch.nn.Module, Tuple, Any, bool]:
     """Load a bundle's model; returns (model in eval mode on ``device``,
-    (None, *per-sample input shape), input dtype, uint8_gray)."""
+    (None, *per-sample input shape), input dtype, uint8_gray). An int8
+    bundle's model is the quantised one."""
     dev = resolve_device(device)
     with zipfile.ZipFile(path) as z:
         meta = json.loads(z.read("config.json"))
         npz = np.load(io.BytesIO(z.read("weights.npz")))
         weights = {k: npz[k] for k in npz.files}
+        qstate = None
+        if meta.get("int8", False):
+            qnpz = np.load(io.BytesIO(z.read("qstate.npz")))
+            qstate = qstate_from_arrays({k: qnpz[k] for k in qnpz.files})
     if meta.get("format") != _FORMAT:
         raise ValueError(f"{path}: not a port bundle (format "
                          f"{meta.get('format')!r})")
     model = build_model(meta["model"], device="cpu")
     model.load_state_dict({k: torch.from_numpy(v)
                            for k, v in weights.items()})
-    model = model.to(dev).eval()
+    model = serving_model(model.to(dev), qstate)
     uint8_gray = bool(meta["uint8_gray"])
     sample = tuple(meta["input_shape"])
     if uint8_gray:
@@ -143,6 +160,14 @@ def load_bundle_model(path: str,
     else:
         dtype = np.dtype(np.float32)
     return model, (None, *sample), dtype, uint8_gray
+
+
+def serving_model(model: torch.nn.Module,
+                  qstate: Optional[Dict[str, Any]] = None) -> torch.nn.Module:
+    """The eval-mode model a bundle or a live run serves: ``model``
+    itself, or its quantised copy for a w8a8 ``qstate``."""
+    model = model.eval()
+    return model if qstate is None else quantized_model(model, qstate)
 
 
 def load_serving_bundle_with_spec(
@@ -209,26 +234,29 @@ def load_trained_agent(run_dir: str,
 
 
 def export_run(run_dir: str, out: str, uint8_input: bool = False,
-               device: Optional[Union[str, torch.device]] = None):
-    """Write the bundle of a trained run to ``out``; returns (agent,
-    per-sample input shape)."""
+               device: Optional[Union[str, torch.device]] = None,
+               int8: bool = False, calib_batches: int = 4):
+    """Write the bundle of a trained run to ``out`` (with ``int8``, the
+    w8a8 backbone calibrated on ``calib_batches`` train batches); returns
+    (agent, per-sample input shape)."""
     agent, input_shape = load_trained_agent(run_dir, device)
+    qstate = (calibrate_qstate_from_agent(agent, calib_batches) if int8
+              else None)
     save_serving_bundle(out, agent.model, agent.model_config, input_shape,
-                        uint8_gray=uint8_input)
+                        uint8_gray=uint8_input, qstate=qstate)
     return agent, input_shape
 
 
 def _export_cmd(args) -> None:
     import os
 
-    if args.int8:
-        raise SystemExit(f"{INT8_REFUSAL}; no bundle written")
     _, input_shape = export_run(args.run_dir, args.out, args.uint8_input,
-                                args.device)
+                                args.device, args.int8, args.calib_batches)
     shown = input_shape[:-1] if args.uint8_input else input_shape
     print(f"wrote {args.out} ({os.path.getsize(args.out) / 1e6:.1f} MB, "
           f"input (b, {', '.join(map(str, shown))})"
-          f"{' uint8 gray' if args.uint8_input else ''})")
+          f"{' uint8 gray' if args.uint8_input else ''}"
+          f"{', int8 backbone' if args.int8 else ''})")
 
 
 def _predict_cmd(args) -> None:
@@ -369,7 +397,10 @@ def main(argv=None) -> None:
                     help="the bundle takes raw grayscale uint8 frames and "
                          "normalizes on the device")
     ex.add_argument("--int8", action="store_true",
-                    help="w8a8 backbone: not ported yet, refused")
+                    help="w8a8 post-training quantisation of the backbone "
+                         "convs (calibrated on the run's train loader)")
+    ex.add_argument("--calib_batches", type=int, default=4,
+                    help="(--int8 only) calibration batches")
     ex.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
     ex.set_defaults(fn=_export_cmd)

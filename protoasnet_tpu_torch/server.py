@@ -19,12 +19,14 @@ with the same wire protocol, so the JAX package's client works against it:
 
 A trained run directory (the port's, or the JAX package's) is served live
 with ``--run_dir``: the agent is rebuilt from the run's config and
-``last.ckpt`` and served on one device.
+``last.ckpt`` and served on one device, with ``--int8`` as the w8a8 model
+calibrated on the run's train loader.
 
 Usage:
     python -m protoasnet_tpu_torch.server --bundle b.zip --port 8300
     python -m protoasnet_tpu_torch.server --run_dir runs/<run> \
-        [--uint8_input] [--allow_reload --reload_root runs]
+        [--uint8_input] [--int8 [--calib_batches 4]] \
+        [--allow_reload --reload_root runs]
     # POST /v1/predict   body = .npy bytes (b, T, H, W[, 3]) for a video
     #                    bundle, (b, H, W[, 3]) for an image bundle -> logits
     # GET  /healthz      liveness
@@ -971,39 +973,41 @@ def serve_live(run_dir: str, host: str = "0.0.0.0", port: int = 8300,
     ``serve.load_trained_agent`` and served through the same
     ``serve.make_serving_fn`` as an exported bundle, so on one device the
     live logits equal the bundle's. uint8_input: raw grayscale uint8
-    frames in, the eval transform on the device. int8 is refused (the
-    w8a8 path is not ported; calib_batches is accepted for it).
+    frames in, the eval transform on the device. int8: the w8a8 backbone,
+    calibrated on ``calib_batches`` batches of the run's train loader
+    (``quant.calibrate_qstate_from_agent``, as ``serve export --int8``
+    does, so the live logits equal the int8 bundle's).
 
     allow_reload: expose POST /v1/reload {"target": <run dir under
-    reload_root>, "int8": bool?}: the new run is rebuilt and warmed while
-    the old weights serve, then swapped in (see Reloader). A run whose
-    per-sample input differs is refused, and so is ``int8: true``.
+    reload_root>, "int8": bool?}: the new run is rebuilt (and, with int8,
+    calibrated and quantised) on the reload thread and warmed while the
+    old weights serve, then swapped in (see Reloader); ``int8`` defaults
+    to this server's. A run whose per-sample input differs is refused.
     """
     import os
 
-    from protoasnet_tpu_torch.serve import (INT8_REFUSAL, load_trained_agent,
-                                            make_serving_fn)
+    from protoasnet_tpu_torch.quant import calibrate_qstate_from_agent
+    from protoasnet_tpu_torch.serve import (load_trained_agent,
+                                            make_serving_fn, serving_model)
     from protoasnet_tpu_torch.utils.device import resolve_device
 
-    if int8:
-        raise SystemExit(f"{INT8_REFUSAL}; nothing served")
     dev = resolve_device(device)
 
-    def build(run):
+    def build(run, want_int8):
         agent, shape = load_trained_agent(run, dev)
-        return make_serving_fn(agent.model.eval(), uint8_input), tuple(shape)
+        qstate = (calibrate_qstate_from_agent(agent, calib_batches)
+                  if want_int8 else None)
+        model = serving_model(agent.model, qstate)
+        return make_serving_fn(model, uint8_input), tuple(shape)
 
-    fn, input_shape = build(run_dir)
+    fn, input_shape = build(run_dir, int8)
     sample_shape = input_shape[:-1] if uint8_input else input_shape
     dtype = np.dtype(np.uint8 if uint8_input else np.float32)
 
     reload_build = None
     if allow_reload:
         def reload_build(target, want_int8):
-            if want_int8:
-                raise ValueError(f"{INT8_REFUSAL}; the old weights keep "
-                                 f"serving")
-            new_fn, new_shape = build(target)
+            new_fn, new_shape = build(target, want_int8)
             if new_shape != input_shape:
                 raise ValueError(f"run {target!r} input {new_shape} != "
                                  f"serving contract {input_shape}")
@@ -1014,7 +1018,7 @@ def serve_live(run_dir: str, host: str = "0.0.0.0", port: int = 8300,
                 banner=f"{run_dir} live ({dev})", stop_event=stop_event,
                 reload_build=reload_build,
                 reload_root=reload_root or os.path.dirname(
-                    os.path.abspath(run_dir)), device=dev)
+                    os.path.abspath(run_dir)), reload_int8=int8, device=dev)
 
 
 def main(argv=None):
@@ -1040,8 +1044,8 @@ def main(argv=None):
                     help="(--run_dir only) raw grayscale uint8 frames in, "
                          "eval transform on the device")
     ap.add_argument("--int8", action="store_true",
-                    help="(--run_dir only) w8a8 backbone: not ported yet, "
-                         "refused")
+                    help="(--run_dir only) w8a8 backbone, calibrated on the "
+                         "run's train loader (reloads default to it)")
     ap.add_argument("--calib_batches", type=int, default=4,
                     help="(--int8 only) calibration batches")
     ap.add_argument("--allow_reload", action="store_true",

@@ -1066,3 +1066,138 @@ def test_flop_count_on_the_card_equals_the_cpu_count(dev):
             {g: 1e-4 for g in GROUPS}, affine=(5.0, 1.1)))
         counts.append((sum(fwd.values()), sum(train.values())))
     assert counts[0] == counts[1], counts
+
+
+# -- the int8 conv of the w8a8 path (ops/int8_conv.py) ----------------------
+
+# (n, C, O, kernel, stride, padding, spatial): every int8 conv geometry of
+# the trunks, with K = taps * C and N = O off multiples of 8 (padded with
+# zeros), M <= 16 (padded rows) and the flagship's layer shapes at batch 2
+INT8_GEOMETRIES = [
+    (2, 45, 144, (1, 3, 3), (1, 1, 1), (0, 1, 1), (4, 9, 9)),
+    (2, 13, 230, (1, 3, 3), (1, 2, 2), (0, 1, 1), (4, 9, 9)),
+    (2, 45, 64, (3, 1, 1), (1, 1, 1), (1, 0, 0), (5, 6, 6)),
+    (2, 230, 12, (3, 1, 1), (2, 1, 1), (1, 0, 0), (5, 6, 6)),
+    (2, 16, 24, (1, 1, 1), (2, 2, 2), (0, 0, 0), (5, 6, 7)),
+    (2, 9, 12, (3, 3, 3), (1, 1, 1), (1, 1, 1), (4, 6, 6)),
+    (2, 9, 20, (3, 3, 3), (2, 2, 2), (1, 1, 1), (5, 7, 6)),
+    (2, 3, 64, (3, 7, 7), (1, 2, 2), (1, 3, 3), (4, 12, 12)),
+    (2, 3, 64, (7, 7), (2, 2), (3, 3), (15, 15)),
+    (2, 3, 27, (3, 3), (1, 1), (1, 1), (7, 7)),
+    (2, 21, 32, (1, 1), (1, 1), (0, 0), (5, 5)),
+    (1, 8, 8, (1, 1), (1, 1), (0, 0), (3, 3)),
+    (2, 64, 144, (1, 3, 3), (1, 1, 1), (0, 1, 1), (32, 56, 56)),
+    (2, 144, 64, (3, 1, 1), (1, 1, 1), (1, 0, 0), (32, 56, 56)),
+    (2, 460, 256, (3, 1, 1), (2, 1, 1), (1, 0, 0), (8, 14, 14)),
+]
+
+
+@pytest.mark.parametrize("chunked", [False, True])
+@pytest.mark.parametrize("geom", INT8_GEOMETRIES)
+def test_int8_conv_card_is_the_plain_version(dev, geom, chunked,
+                                             monkeypatch):
+    from protoasnet_tpu_torch.ops import int8_conv as ic
+
+    if chunked:
+        monkeypatch.setattr(ic, "CHUNK_BYTES", 50_000)
+    n, c, o, k, stride, pad, sp = geom
+    g = torch.Generator(device=dev).manual_seed(31)
+    xq = torch.randint(-127, 128, (n, c, *sp), generator=g, device=dev,
+                       dtype=torch.int8)
+    wq = torch.randint(-127, 128, (o, c, *k), generator=g, device=dev,
+                       dtype=torch.int8)
+    before = ic.LAUNCHES
+    got = ic.int8_conv(xq, wq, stride, pad)
+    assert ic.LAUNCHES > before
+    want = ic.int8_conv_torch(xq, wq, stride, pad)  # float64 on the card
+    assert got.dtype == torch.int32 and got.shape == want.shape
+    assert torch.equal(got, want)
+    cpu = ic.int8_conv_torch(xq.cpu(), wq.cpu(), stride, pad)
+    assert torch.equal(got.cpu(), cpu)
+
+
+def test_int8_conv_raises_and_never_falls_back_to_a_float_conv(
+        dev, monkeypatch):
+    """A shape ``_int_mm`` cannot take raises; a quantised model's forward
+    on the card calls no float convolution of the trunk."""
+    from torch import nn
+
+    from protoasnet_tpu_torch.models.builder import build_model
+    from protoasnet_tpu_torch.ops import int8_conv as ic
+    from protoasnet_tpu_torch.quant import (build_qstate,
+                                            calibrate_act_scales,
+                                            quantized_model)
+
+    with pytest.raises(ValueError, match="multiples of 8"):
+        ic.int_mm(torch.zeros(32, 27, dtype=torch.int8, device=dev),
+                  torch.zeros(27, 8, dtype=torch.int8, device=dev))
+    with pytest.raises(ValueError, match="M > 16"):
+        ic.int_mm(torch.zeros(16, 32, dtype=torch.int8, device=dev),
+                  torch.zeros(32, 8, dtype=torch.int8, device=dev))
+    with pytest.raises(ValueError, match="exact"):
+        ic.int8_conv(torch.zeros(1, 20000, 3, 3, dtype=torch.int8,
+                                 device=dev),
+                     torch.zeros(8, 20000, 3, 3, dtype=torch.int8,
+                                 device=dev), 1, 1)
+    cfg = {"name": "Video_XProtoNet", "base_architecture": "resnet2p1d_18",
+           "backbone_last_layer_num": -3, "prototype_shape": (8, 64, 1, 1, 1),
+           "num_classes": 4}
+    model = build_model(cfg, device=dev)
+    x = torch.randn(2, 8, 32, 32, 3, device=dev)
+    qm = quantized_model(model, build_qstate(
+        model, calibrate_act_scales(model, [x])))
+    calls = []
+    real = nn.Conv3d._conv_forward
+
+    def counted(self, *args):
+        calls.append(self)
+        return real(self, *args)
+
+    monkeypatch.setattr(nn.Conv3d, "_conv_forward", counted)
+    before = ic.LAUNCHES
+    with torch.inference_mode():
+        out = qm(x)[0]
+    assert torch.isfinite(out).all()
+    assert ic.LAUNCHES - before == 27
+    # only the stem's spatial conv (the JAX package's space-to-depth
+    # stem, never quantised) runs as a float conv
+    assert calls == [qm.cnn_backbone.stem_spatial]
+
+
+def test_int8_chunked_peak_memory_at_layer1(dev):
+    """layer1's spatial conv at the flagship's bucket of 128 (M =
+    12,845,056 rows, K = 576): the int8 path holds its codes, its output
+    and at most one chunk, not the 7.40 GB im2col and 7.40 GB of int32
+    sums of one GEMM, and no more than bf16 cuDNN at the same shape."""
+    from torch import nn
+
+    from protoasnet_tpu_torch.ops import int8_conv as ic
+    from protoasnet_tpu_torch.quant import QuantConv
+
+    conv = nn.Conv3d(64, 144, (1, 3, 3), padding=(0, 1, 1), bias=False)
+    entry = {"w_q": torch.randint(-127, 128, (1, 3, 3, 64, 144),
+                                  dtype=torch.int8),
+             "w_scale": torch.full((144,), 1e-3), "a_scale": torch.tensor(
+                 0.02)}
+    qconv = QuantConv(conv.to(dev), entry, [])
+    x = torch.randn((128, 64, 32, 56, 56), device=dev, dtype=torch.bfloat16)
+    peaks = {}
+    for name, fn in (("int8", lambda: qconv(x)),
+                     ("bf16", lambda: nn.functional.conv3d(
+                         x, conv.weight.bfloat16(), padding=(0, 1, 1)))):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        with torch.inference_mode():
+            y = fn()
+        torch.cuda.synchronize()
+        peaks[name] = torch.cuda.max_memory_allocated() - base
+        out_bytes = y.numel() * y.element_size()
+        del y
+        torch.cuda.empty_cache()
+    print(f"layer1 spatial conv at 128: peak beyond the bf16 input "
+          f"{peaks['int8'] / 2**30:.3f} GiB (int8), "
+          f"{peaks['bf16'] / 2**30:.3f} GiB (bf16 cuDNN); output "
+          f"{out_bytes / 2**30:.3f} GiB")
+    assert peaks["int8"] <= out_bytes + x.numel() + 1.25 * ic.CHUNK_BYTES
+    assert peaks["int8"] <= peaks["bf16"]

@@ -5,8 +5,12 @@ bundle, on the CPU (``--device cpu``).
   32x32, P=8, D=64): the bundle's logits equal the rebuilt agent's eval
   forward (direct, and served over HTTP by ``server.serve_forever``);
   ``--uint8_input`` takes raw gray frames and gives the float bundle's
-  logits on the normalised 3-channel frames; ``--int8`` is refused and
-  writes nothing;
+  logits on the normalised 3-channel frames;
+- ``--int8`` (w8a8, ``quant.py``) of a port run and of a JAX run: the
+  bundle holds ``qstate.npz``, loads as the quantised model, and its
+  logits equal ``apply_quantized`` on the rebuilt agent calibrated on the
+  same train batches; ``--int8 --uint8_input`` round-trips; an int8
+  bundle is served by the daemon (bit-equal) and timed by ``serve tune``;
 - runs written by the JAX package's agents (flax ``last.ckpt`` and its
   ``config_agent.yml``; the end-to-end video XProtoNet, the staged image
   XProtoNet and the end-to-end ProtoPNet): the bundle's logits equal the
@@ -27,6 +31,7 @@ import subprocess
 import sys
 import threading
 import urllib.request
+import zipfile
 from pathlib import Path
 
 import numpy as np
@@ -38,9 +43,13 @@ from protoasnet_tpu_torch import server
 from protoasnet_tpu_torch.data.synthetic import make_synthetic_dataset
 from protoasnet_tpu_torch.data.transforms import normalize
 from protoasnet_tpu_torch.main import main as train_main
-from protoasnet_tpu_torch.serve import (export_run, load_serving_bundle,
+from protoasnet_tpu_torch.client import ServingClient
+from protoasnet_tpu_torch.quant import (apply_quantized,
+                                        calibrate_qstate_from_agent)
+from protoasnet_tpu_torch.serve import (export_run, load_bundle_model,
+                                        load_serving_bundle,
                                         load_serving_bundle_with_spec,
-                                        load_trained_agent)
+                                        load_trained_agent, tune_bundle)
 from protoasnet_tpu_torch.serve import main as serve_main
 from tests.test_torch_port_checkpoint_jax import (_jax_logits, _jax_run,
                                                   agent_config, sample_batch)
@@ -195,12 +204,86 @@ def test_uint8_input_round_trips(port_run, scratch):
         f32, device="cpu")(x), rtol=1e-5, atol=1e-5)
 
 
-def test_int8_is_refused(port_run, scratch):
-    out = scratch / "q.zip"
-    with pytest.raises(SystemExit, match="ROADMAP.md §1 item 5"):
-        serve_main(["export", "--run_dir", port_run, "--out", str(out),
-                    "--int8", "--device", "cpu"])
-    assert not out.exists()
+def _int8_logits(run, x, calib_batches=4):
+    """``apply_quantized`` on the run's rebuilt agent, calibrated as the
+    export calibrates (its train loader's first batches)."""
+    agent, _ = load_trained_agent(run, device="cpu")
+    qstate = calibrate_qstate_from_agent(agent, calib_batches)
+    assert len(qstate) > 20 and not any("stem_spatial" in k for k in qstate)
+    return apply_quantized(agent.model, qstate, torch.from_numpy(x))[0] \
+        .float().numpy()
+
+
+def test_int8_export_of_a_port_run(port_run, scratch):
+    out = str(scratch / "q.zip")
+    serve_main(["export", "--run_dir", port_run, "--out", out, "--int8",
+                "--calib_batches", "2", "--device", "cpu"])
+    with zipfile.ZipFile(out) as z:
+        assert {"config.json", "weights.npz", "qstate.npz"} <= set(
+            z.namelist())
+    model, spec, dtype, _ = load_bundle_model(out, device="cpu")
+    assert spec == (None, 8, 32, 32, 3) and dtype == np.float32
+    assert type(model.cnn_backbone.layer1_0.conv1.spatial).__name__ == \
+        "QuantConv"
+    x = _clips(3, 4)
+    got = load_serving_bundle(out, device="cpu")(x)
+    np.testing.assert_array_equal(got, _int8_logits(port_run, x, 2))
+    # a float bundle of the same run: close, not equal
+    f32 = str(scratch / "f.zip")
+    export_run(port_run, f32, device="cpu")
+    fp = load_serving_bundle(f32, device="cpu")(x)
+    assert 0 < np.abs(got - fp).max() < 0.08 * np.abs(fp).max()
+
+
+def test_int8_uint8_input_round_trips(port_run, scratch):
+    q, q8 = str(scratch / "q.zip"), str(scratch / "q8.zip")
+    export_run(port_run, q, device="cpu", int8=True)
+    export_run(port_run, q8, uint8_input=True, device="cpu", int8=True)
+    fn8, spec, dtype = load_serving_bundle_with_spec(q8, device="cpu")
+    assert spec == (None, 8, 32, 32) and dtype == np.uint8
+    gray = np.random.default_rng(5).integers(0, 256, size=(2, 8, 32, 32),
+                                             dtype=np.uint8)
+    x = normalize(torch.from_numpy(gray).float() / 255.0)
+    x = x[..., None].expand(*x.shape, 3).contiguous().numpy()
+    np.testing.assert_allclose(fn8(gray), load_serving_bundle(
+        q, device="cpu")(x), rtol=1e-5, atol=1e-5)
+
+
+def test_int8_bundle_served_by_the_daemon_and_tuned(port_run, scratch):
+    out = str(scratch / "q.zip")
+    export_run(port_run, out, device="cpu", int8=True)
+    x = _clips(3, 6)
+    want = load_serving_bundle(out, device="cpu")(x)
+    ready, stop = threading.Event(), threading.Event()
+    t = threading.Thread(target=server.serve_forever, args=(out,),
+                         kwargs=dict(host="127.0.0.1", port=0, max_batch=4,
+                                     warmup=False, ready_event=ready,
+                                     stop_event=stop, device="cpu"),
+                         daemon=True)
+    t.start()
+    try:
+        assert ready.wait(120)
+        got = ServingClient(f"http://127.0.0.1:{ready.port}",
+                            timeout_s=120, retries=0).predict(x)
+    finally:
+        stop.set()
+        t.join(60)
+    np.testing.assert_array_equal(got, want)
+    res = tune_bundle(out, [1, 2], points=(1, 2), device="cpu")
+    assert set(res["results"]) == {1, 2}
+    assert all("samples_per_sec" in r or "error" in r
+               for r in res["results"].values())
+
+
+def test_int8_export_of_a_jax_run(csv, scratch):
+    run = scratch / "jax_run"
+    _jax_run("Video_XProtoNet_e2e", csv, run)
+    out = str(scratch / "q.zip")
+    serve_main(["export", "--run_dir", str(run), "--out", out, "--int8",
+                "--device", "cpu"])
+    x = sample_batch("Video_XProtoNet_e2e", 6, n=3)[0].astype(np.float32)
+    np.testing.assert_array_equal(load_serving_bundle(out, device="cpu")(x),
+                                  _int8_logits(str(run), x))
 
 
 @pytest.mark.parametrize("name", ["Video_XProtoNet_e2e", "XProtoNet_Base",

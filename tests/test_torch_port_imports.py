@@ -67,7 +67,9 @@ def test_port_imports_no_jax():
                  "explain.__main__", "serve", "models.from_jax",
                  "client", "utils.preprocess", "utils.profiling",
                  "utils.flops", "models.surgery", "models.migrate",
-                 "train.device_metrics"):
+                 "train.device_metrics", "quant", "ops.int8_conv",
+                 "ops.affine", "models.backbones.r3d",
+                 "models.backbones.vgg", "models.backbones.densenet"):
         assert "protoasnet_tpu_torch." + name in out["modules"], name
     assert out["bad"] == []
 

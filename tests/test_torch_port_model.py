@@ -181,21 +181,14 @@ def test_flagship_config_builds_at_full_width():
     assert tuple(x.shape) == (1, 32, 112, 112, 3)
 
 
-def test_unported_models_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(dict(CFG, name="XProtoNet",
-                         base_architecture="densenet121"), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(dict(CFG, base_architecture="r3d_18"), device="cpu")
-    from protoasnet_tpu_torch.models.backbones import make_backbone
-
-    for name in ("vgg16", "vgg11_bn", "densenet121"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            make_backbone(name)
+def test_bad_model_configs_raise():
     with pytest.raises(ValueError, match="video backbone"):
         build_model(dict(CFG, base_architecture="resnet18"), device="cpu")
     with pytest.raises(ValueError, match="unknown model name"):
         build_model(dict(CFG, name="PPNet"), device="cpu")
+    with pytest.raises(ValueError, match="Unknown base_architecture"):
+        build_model(dict(CFG, name="XProtoNet", base_architecture="vgg10"),
+                    device="cpu")
 
 
 def test_config_override_parsing_matches_jax():
