@@ -6,7 +6,8 @@ paths of the video flagship, the ProtoPNet baseline and the image
 ProtoASNet, the trained runs explained, exported, served live, reloaded
 and tuned, the training loop's instrumentation, ``model.remat``, the
 reference's ``.pth`` both ways, the flagship served as w8a8 int8, and the
-last trunks (r3d_18, VGG, DenseNet).
+last trunks (r3d_18, VGG, DenseNet), and data parallelism through
+``torch.distributed.run``.
 
     python3 chip_smoke.py
 
@@ -168,7 +169,19 @@ raises and the script exits non-zero without printing a result):
    ``densenet121`` in ProtoPNet's PPNet (224x224): the card's forward at
    batch 8 (TF32 off) within 1e-3 * max(1, |logits|) of the CPU's, and
    the w8a8-quantised forward within 2e-2 * max(1, |logits|) of the
-   CPU's, each head kernel's launches counted (> 0).
+   CPU's, each head kernel's launches counted (> 0);
+21. distribution (``parallel/``): (a) phase 7's command line under
+   ``python -m torch.distributed.run --standalone --nproc_per_node=1``
+   (NCCL, world 1), its per-step train losses within 1e-4 relative of the
+   same command without the launcher and one ``last.ckpt``; (b) two gloo
+   ranks on cuda:0, one fp32 step at the global batch 6: its loss within
+   2e-5 of the single-process step, the replicas bit-identical after it;
+   (c) world-1 NCCL: the bf16 micro-step at batch 5 beside phase 7's,
+   the fp32 step data-parallel against FSDP2 (losses within 2e-5, peak
+   memory of each); (d) ``server.serve_live`` over every local card
+   bit-equal to phase 15's logits; (e) the ROI kernel launched in each of
+   (a)-(c). The workers of (a)-(c) are this script under the launcher:
+   ``chip_smoke.py dp_main|dp_gloo|dp_nccl``.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or of the JAX
@@ -1858,7 +1871,7 @@ def phase_live(dev, train, image_run: Path, work: Path):
     phase 10's image run ends in ``error`` with the contract message, and
     the current logits keep serving. ``roi_cosine_cuda``'s launches are
     set to 0 before (a) and before (b) and read after each. Returns
-    (launches of (a), of (b)-(c))."""
+    (launches of (a), of (b)-(c), (a)'s logits)."""
     from protoasnet_tpu_torch import server
     from protoasnet_tpu_torch.client import ServingClient, ServingError
     from protoasnet_tpu_torch.ops.roi_cosine_cuda import roi_cosine_cuda
@@ -2007,7 +2020,7 @@ def phase_live(dev, train, image_run: Path, work: Path):
         f"up to {d_moved:.3e}, reloaded vs its eval step {d_new_eval:.3e}; "
         f"reload to the image run refused ({contract_error!r}); "
         f"roi_cosine_cuda launches {launches_b}")
-    return launches_a, launches_b
+    return launches_a, launches_b, live
 
 
 def phase_live_ppnet(dev, run: Path):
@@ -2696,12 +2709,328 @@ def phase_new_trunks(dev):
     return out
 
 
+# phase 21: distribution (parallel/), data-parallel through torchrun
+# (a): phase 7's command line with the per-batch losses logged
+DP_TRAIN_ARGS = ("--train.on_device_metrics=false",
+                 "--render_prototypes=false")
+DP_BATCH = 6  # (b)-(c): the global batch, 3 rows a rank at world 2
+DP_AFFINE = (12.5, 1.25)  # (b)-(c): the TransformLoss draw, fixed
+WORKER = "WORKER "  # a torchrun worker's report line
+
+
+def _torchrun(nproc: int, *args: str, timeout: float = 300):
+    """``python -m torch.distributed.run --standalone --nproc_per_node=
+    nproc chip_smoke.py <args>`` in its own session (killed whole on a
+    timeout); returns the workers' reports, rank order."""
+    import os
+    import signal
+
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc_per_node={nproc}", str(REPO / "chip_smoke.py"), *args]
+    proc = subprocess.Popen(cmd, cwd=str(REPO), stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise AssertionError(f"torchrun {args[0]}: timed out")
+    if proc.returncode:
+        raise AssertionError(f"torchrun {args[0]} exited {proc.returncode}:"
+                             f"\n{out[-6000:]}")
+    reports = [json.loads(line[len(WORKER):]) for line in out.splitlines()
+               if line.startswith(WORKER)]
+    if len(reports) != nproc:
+        raise AssertionError(f"torchrun {args[0]}: {len(reports)} reports:"
+                             f"\n{out[-6000:]}")
+    return sorted(reports, key=lambda r: r["rank"])
+
+
+def _report(**kw) -> None:
+    import torch.distributed as dist
+
+    print(WORKER + json.dumps(dict(kw, rank=dist.get_rank(),
+                                   world=dist.get_world_size(),
+                                   backend=dist.get_backend())), flush=True)
+
+
+def _batch_losses(run: Path):
+    rows = [json.loads(line) for line in
+            (run / "metrics.jsonl").read_text().splitlines()]
+    return [r["batch_train/loss_all"] for r in rows
+            if "batch_train/loss_all" in r]
+
+
+def _flagship_step(dev, cfg, dtype, every, fsdp=False):
+    """(model, train step) of the flagship at full width on ``dev`` (seed
+    0, ``dtype``), replicated from rank 0, FSDP2-sharded if asked."""
+    from protoasnet_tpu_torch.losses.bundle import LossBundle
+    from protoasnet_tpu_torch.models.builder import build_model
+    from protoasnet_tpu_torch.parallel.mesh import (fsdp_param_shardings,
+                                                    make_mesh, replicate)
+    from protoasnet_tpu_torch.train.optim import (GROUPS, GradAccumulator,
+                                                  GroupAdam)
+    from protoasnet_tpu_torch.train.steps import make_xprotonet_steps
+
+    mcfg = dict(cfg["model"], dtype=dtype)
+    model = replicate(build_model(mcfg, device=dev, seed=0))
+    if fsdp:
+        fsdp_param_shardings(model, make_mesh())
+    opt = GroupAdam(model, {gr: 1e-3 for gr in GROUPS})
+    step, _, _ = make_xprotonet_steps(
+        model, LossBundle(cfg["train"]["criterion"], num_classes=4,
+                          abstain_class=True),
+        opt, GradAccumulator(opt.params, every))
+    return model, step
+
+
+def _dp_batch(dev):
+    """This rank's rows of the seeded global batch of ``DP_BATCH``."""
+    from protoasnet_tpu_torch.parallel.mesh import shard_batch
+
+    rng = np.random.default_rng(21)
+    part = shard_batch({
+        "cine": rng.normal(size=(DP_BATCH, *CLIP)).astype(np.float32),
+        "target_dev": np.array([0, 1, 2, 0, 1, 2]),
+        "valid_dev": np.ones(DP_BATCH, bool)}, dev)
+    return part["cine"], part["target_dev"], part["valid_dev"]
+
+
+def _fp32_step(dev, cfg, fsdp=False):
+    """One fp32 step (TF32 off) of the flagship on the global batch of
+    ``DP_BATCH``: {loss (the reported, global one), sha (sha256 of the
+    parameters after it), peak (allocated GiB during the step beyond what
+    was allocated before it), rest (that allocation), logits (the rank's
+    rows), step_s (host clock, synchronised)}."""
+    import hashlib
+
+    from protoasnet_tpu_torch.train.optim import GROUPS
+
+    with no_tf32():
+        model, step = _flagship_step(dev, cfg, "float32", 1, fsdp)
+        x, y, v = _dp_batch(dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        m = step(x, y, v, {gr: 1e-4 for gr in GROUPS}, affine=DP_AFFINE)
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+        peak = (torch.cuda.max_memory_allocated() - before) / 2 ** 30
+        sha = hashlib.sha256()
+        for p in model.parameters():
+            p = p.full_tensor() if hasattr(p, "full_tensor") else p
+            sha.update(p.detach().cpu().numpy().tobytes())
+    return {"loss": float(m["loss_all"]), "sha": sha.hexdigest(),
+            "peak": peak, "rest": before / 2 ** 30, "step_s": step_s,
+            "logits": m["logits"].float().cpu().tolist()}
+
+
+def worker_dp_main(*argv: str) -> None:
+    """(a), under torchrun: the training entry point's ``main`` with
+    ``argv`` in a group of NCCL's; reports the ROI kernel's counts."""
+    from protoasnet_tpu_torch.main import main as train_main
+    from protoasnet_tpu_torch.ops.roi_cosine_cuda import roi_cosine_cuda
+    from protoasnet_tpu_torch.parallel.mesh import (
+        maybe_initialize_distributed, shutdown_distributed)
+
+    maybe_initialize_distributed()
+    roi_cosine_cuda.launches = roi_cosine_cuda.backward_calls = 0
+    t0 = time.monotonic()
+    agent = train_main(list(argv))
+    torch.cuda.synchronize()
+    _report(run=str(agent.save_dir), seconds=time.monotonic() - t0,
+            launches=roi_cosine_cuda.launches,
+            backward_calls=roi_cosine_cuda.backward_calls)
+    shutdown_distributed()
+
+
+def worker_dp_gloo() -> None:
+    """(b), under torchrun with two ranks: gloo on CUDA tensors, both ranks
+    on cuda:0; one fp32 step at the global batch of ``DP_BATCH``."""
+    from protoasnet_tpu_torch.ops.roi_cosine_cuda import roi_cosine_cuda
+    from protoasnet_tpu_torch.parallel.mesh import (
+        maybe_initialize_distributed, shutdown_distributed)
+
+    dev = torch.device("cuda", 0)
+    maybe_initialize_distributed(dev, backend="gloo")
+    roi_cosine_cuda.launches = 0
+    t0 = time.monotonic()
+    _report(**_fp32_step(dev, load_model_config(VIDEO)),
+            seconds=time.monotonic() - t0, launches=roi_cosine_cuda.launches)
+    shutdown_distributed()
+
+
+def worker_dp_nccl(plain_ms: str) -> None:
+    """(c), under torchrun with one rank (NCCL): the bf16 train micro-step
+    at batch 5 timed as phase 7 times it, then one fp32 step at the global
+    batch of ``DP_BATCH`` data-parallel and one under FSDP2, with their
+    peak memory."""
+    from protoasnet_tpu_torch.ops.roi_cosine_cuda import roi_cosine_cuda
+    from protoasnet_tpu_torch.parallel.mesh import (
+        local_device, maybe_initialize_distributed, shutdown_distributed)
+    from protoasnet_tpu_torch.train.optim import GROUPS
+
+    maybe_initialize_distributed()
+    dev = local_device()
+    cfg = load_model_config(VIDEO)
+    roi_cosine_cuda.launches = 0
+    _, step = _flagship_step(dev, cfg, cfg["model"]["dtype"], 2)
+    x = torch.randn((5, *CLIP), device=dev)
+    y = torch.tensor([0, 1, 2, 0, 1], device=dev)
+    v = torch.ones(5, dtype=torch.bool, device=dev)
+    lrs = {gr: 1e-4 for gr in GROUPS}
+    gen = torch.Generator().manual_seed(8)
+    for _ in range(4):
+        step(x, y, v, lrs, generator=gen)
+    torch.cuda.synchronize()
+    iters = 20
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        step(x, y, v, lrs, generator=gen)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / iters * 1e3
+    del step
+    torch.cuda.empty_cache()
+    dp = _fp32_step(dev, cfg)
+    torch.cuda.empty_cache()
+    fsdp = _fp32_step(dev, cfg, fsdp=True)
+    _report(ms=ms, plain_ms=float(plain_ms), dp=dp, fsdp=fsdp,
+            launches=roi_cosine_cuda.launches)
+    shutdown_distributed()
+
+
+WORKERS = {"dp_main": worker_dp_main, "dp_gloo": worker_dp_gloo,
+           "dp_nccl": worker_dp_nccl}
+
+
+def phase_distribution(dev, cfg, train, work: Path, train_rate: float,
+                       live15: np.ndarray) -> int:
+    """21: the port's data parallelism (``parallel/``) on the card.
+
+    (a) ``protoasnet_tpu_torch.main`` under ``python -m
+    torch.distributed.run --standalone --nproc_per_node=1`` (NCCL, world
+    1; the worker calls the entry point's ``main`` with the command line
+    and reports the ROI kernel's counts) on phase 7's command line with
+    the per-batch host metrics: its per-step training losses within 1e-4
+    relative of the same command without the launcher (in this process),
+    one ``last.ckpt``; (b) two gloo ranks on cuda:0, one fp32 step (TF32
+    off) at the global batch of ``DP_BATCH``: the step-1 loss within 2e-5
+    relative of this process's single-process step, the two replicas'
+    parameters bit-identical after it (a correctness run: the all-reduces
+    cross the host); (c) world-1 NCCL: the bf16 micro-step at batch 5
+    beside phase 7's, the fp32 step data-parallel and under FSDP2 (losses
+    within 2e-5, peak memory of each); (d) ``server.serve_live`` with its
+    default devices (every local card) bit-equal to phase 15's logits;
+    (e) the ROI kernel launched in each of (a)-(c). Returns the launches
+    of (a)-(d)."""
+    from protoasnet_tpu_torch import server
+    from protoasnet_tpu_torch.client import ServingClient
+    from protoasnet_tpu_torch.main import main as train_main
+    from protoasnet_tpu_torch.ops.roi_cosine_cuda import roi_cosine_cuda
+
+    t_phase = time.monotonic()
+    torch.cuda.empty_cache()  # the workers share the card with this process
+    args = [a.replace(str(work / "video_runs"), str(work / "dp_runs"))
+            for a in train["args"]] + list(DP_TRAIN_ARGS)
+    ref_args = [a.replace("dp_runs", "dp_ref_runs") for a in args]
+    # (a) and (b), which time nothing, at once: the launcher's run beside
+    # the same command without it, the gloo ranks beside one process
+    with ThreadPoolExecutor(2) as pool:
+        fut_a = pool.submit(_torchrun, 1, "dp_main", *args)
+        fut_b = pool.submit(_torchrun, 2, "dp_gloo")
+        ref = Path(train_main(ref_args).save_dir)
+        one = _fp32_step(dev, cfg)
+        (a,), b = fut_a.result(), fut_b.result()
+    torch.cuda.empty_cache()
+    run = Path(a["run"])
+    dp_losses, ref_losses = _batch_losses(run), _batch_losses(ref)
+    rel = max(abs(p - q) / abs(q) for p, q in zip(dp_losses, ref_losses))
+    ckpts = sorted(p.name for p in run.glob("*.ckpt"))
+    if (a["backend"], a["world"]) != ("nccl", 1) or not dp_losses or \
+            len(dp_losses) != len(ref_losses) or rel > 1e-4 or \
+            ckpts.count("last.ckpt") != 1 or not a["launches"]:
+        raise AssertionError(f"(a) {a}: losses {dp_losses} vs {ref_losses} "
+                             f"({rel}), checkpoints {ckpts}")
+    log(f"[21 dp train] python -m torch.distributed.run --standalone "
+        f"--nproc_per_node=1 -m protoasnet_tpu_torch.main {' '.join(args[2:])}"
+        f" ({a['backend']}, world {a['world']}): {a['seconds']:.1f}s; "
+        f"per-step train losses {[round(v, 6) for v in dp_losses]}, max "
+        f"relative diff {rel:.3e} from the same command without the "
+        f"launcher (limit 1e-4); checkpoints {ckpts}; roi_cosine_cuda "
+        f"launches {a['launches']}, backward calls {a['backward_calls']}")
+
+    # (b) two gloo ranks on one card against this process's step
+    rel_b = abs(b[0]["loss"] - one["loss"]) / abs(one["loss"])
+    d_logits = _max_diff(sum((r["logits"] for r in b), []), one["logits"])
+    if {(r["backend"], r["world"], len(r["logits"])) for r in b} != {
+            ("gloo", 2, DP_BATCH // 2)} or rel_b > 2e-5 or \
+            b[0]["loss"] != b[1]["loss"] or b[0]["sha"] != b[1]["sha"] or \
+            not all(r["launches"] for r in b):
+        raise AssertionError(f"(b) {b} vs one process {one}")
+    log(f"[21 dp gloo] 2 gloo ranks on cuda:0 (a correctness run, the "
+        f"all-reduces go through the host), fp32 step at the global batch "
+        f"{DP_BATCH} ({DP_BATCH // 2} rows a rank): loss {b[0]['loss']!r} "
+        f"vs one process {one['loss']!r} (relative {rel_b:.3e}, limit "
+        f"2e-5), the ranks' logits vs its {d_logits:.3e}; replicas "
+        f"bit-identical after it (sha256 {b[0]['sha'][:16]}); the step "
+        f"{1e3 * max(r['step_s'] for r in b):.1f} ms against one process's "
+        f"{1e3 * one['step_s']:.1f} ms (first steps, each run beside (a)); "
+        f"roi_cosine_cuda launches {[r['launches'] for r in b]}")
+
+    # (c) world-1 NCCL: the micro-step, DP against FSDP2
+    (c,) = _torchrun(1, "dp_nccl", f"{1e3 * 5 / train_rate:.4f}")
+    dp, fs = c["dp"], c["fsdp"]
+    rel_c = abs(fs["loss"] - dp["loss"]) / abs(dp["loss"])
+    if c["backend"] != "nccl" or rel_c > 2e-5 or not c["launches"]:
+        raise AssertionError(f"(c) {c}")
+    log(f"[21 dp nccl] world-1 NCCL: bf16 train micro-step at batch 5 "
+        f"{c['ms']:.2f} ms against phase 7's {c['plain_ms']:.2f} ms "
+        f"without a group ({c['ms'] / c['plain_ms']:.3f}x); fp32 step at "
+        f"the batch {DP_BATCH}: data-parallel loss {dp['loss']!r}, FSDP2 "
+        f"{fs['loss']!r} (relative {rel_c:.3e}, limit 2e-5); memory "
+        f"allocated at rest {dp['rest']:.3f} / {fs['rest']:.3f} GiB, peak "
+        f"of the step beyond it {dp['peak']:.3f} / {fs['peak']:.3f} GiB, "
+        f"the first step {1e3 * dp['step_s']:.1f} / "
+        f"{1e3 * fs['step_s']:.1f} ms (DP / FSDP2); "
+        f"roi_cosine_cuda launches {c['launches']}")
+
+    # (d) serve_live over every local card
+    x = np.random.default_rng(15).normal(
+        size=(LIVE_CLIPS, *CLIP)).astype(np.float32)
+    roi_cosine_cuda.launches = 0
+    devices = server.live_devices()
+    with _serving(server.serve_live, str(train["run"]),
+                  max_batch=LIVE_BATCH, warmup=True) as url:
+        client = ServingClient(url, timeout_s=300, retries=0)
+        spec = client.spec()
+        splitting = ServingClient(url, timeout_s=300, retries=0)
+        splitting._spec = dict(spec, max_request_samples=LIVE_BATCH + 1)
+        live = splitting.predict(x)
+    d_launches = roi_cosine_cuda.launches
+    if not np.array_equal(live, live15) or not d_launches:
+        raise AssertionError(f"(d) serve_live over {devices}: vs phase 15 "
+                             f"{_max_diff(live, live15)}")
+    log(f"[21 dp serve] server.serve_live over {[str(d) for d in devices]} "
+        f"(buckets {spec['buckets']}): {LIVE_CLIPS} clips bit-equal to "
+        f"phase 15's; roi_cosine_cuda launches {d_launches}")
+    log(f"[21 dp] (e) roi_cosine_cuda launched in (a) {a['launches']}, (b) "
+        f"{[r['launches'] for r in b]}, (c) {c['launches']}, (d) "
+        f"{d_launches}; phase 21 took {time.monotonic() - t_phase:.1f}s")
+    return a["launches"] + sum(r["launches"] for r in b) + c["launches"] \
+        + d_launches
+
+
 def _record(r):
     return {k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                               "bound_by", "library_ms")}
 
 
 def main() -> int:
+    if len(sys.argv) > 1:  # a worker of phase 21, started by torchrun
+        WORKERS[sys.argv[1]](*sys.argv[2:])
+        return 0
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
               "runs on an NVIDIA GPU", file=sys.stderr)
@@ -2718,7 +3047,7 @@ def main() -> int:
 
 
 def _phases(dev, card: str, cfgs, work: Path) -> int:
-    """Phases 1-20; the training runs stay under ``work`` for 13-19."""
+    """Phases 1-21; the training runs stay under ``work`` for 13-21."""
     from protoasnet_tpu_torch.ops import fused_c2p1d_cuda as fused_mod
     from protoasnet_tpu_torch.ops import l2_min_cuda as l2_mod
     from protoasnet_tpu_torch.ops import roi_cosine_cuda as roi_mod
@@ -2778,8 +3107,8 @@ def _phases(dev, card: str, cfgs, work: Path) -> int:
     launches["l2_min_cuda"] += phase_export_ppnet(dev, ppnet_run)
     # the trained runs served live, reloaded and tuned: each path with its
     # kernel's count set to 0 just before it and read just after
-    launches["roi_cosine_cuda"] += sum(phase_live(dev, train_counts,
-                                                  image_run, work))
+    live_a, live_b, live15 = phase_live(dev, train_counts, image_run, work)
+    launches["roi_cosine_cuda"] += live_a + live_b
     launches["l2_min_cuda"] += phase_live_ppnet(dev, ppnet_run)
     launches["roi_cosine_cuda"] += phase_tune(
         dev, train_counts["run"].parent / "flagship_bundle.zip",
@@ -2800,6 +3129,10 @@ def _phases(dev, card: str, cfgs, work: Path) -> int:
                                               rates[VIDEO["label"]][128])
     for name, count in phase_new_trunks(dev).items():
         launches[name] += count
+    # distribution: the data-parallel paths with the counts set to 0 just
+    # before each and read just after
+    launches["roi_cosine_cuda"] += phase_distribution(
+        dev, cfgs[VIDEO["label"]], train_counts, work, train_rate, live15)
     print(card)
     print(json.dumps({"kernels": [
         dict(name="roi_cosine_cuda", route="cuda", source=roi_mod.SOURCE,

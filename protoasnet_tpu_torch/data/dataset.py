@@ -14,6 +14,10 @@ device (the JAX package's ``data/dataset.py`` in torch).
   they come from a ``torch.Generator`` seeded ``seed * 100003 + epoch``.
 * Eval iterates every interval of every video; the final ragged batch is
   padded and carries a ``valid`` mask.
+* Under data parallelism (``parallel/mesh.py``) every rank gathers the
+  same global batch on the host and copies only its block of rows to its
+  device; the augmentation draws for the global batch and applies the
+  rank's rows, so the ranks' rows together are the single-process batch.
 
 Cine sources: ``.mat`` (scipy, key "cine", (T, H, W)) and ``.npy``, uint8
 [0, 255] or float [0, 1].
@@ -31,7 +35,9 @@ import numpy as np
 import torch
 
 from protoasnet_tpu_torch.data.manifest import Manifest
-from protoasnet_tpu_torch.data.transforms import make_preprocess_fn
+from protoasnet_tpu_torch.data.transforms import (make_preprocess_fn,
+                                                  sample_augment_params)
+from protoasnet_tpu_torch.parallel.mesh import row_slice
 
 __all__ = ["CineStore", "ASClipDataset", "ClipLoader", "get_as_dataloader"]
 
@@ -231,7 +237,9 @@ class ClipLoader:
     Yields dicts with ``cine`` on ``device``, (B, frames, S, S, 3) or
     (B, S, S, 3), ``target_dev`` (int64) and ``valid_dev`` (bool) on the
     device, and the host metadata (numpy) with a ``valid`` mask over the
-    final batch's padding.
+    final batch's padding. Under data parallelism the device tensors hold
+    the rank's rows (``parallel.mesh.row_slice``) and the host metadata
+    the global batch's.
     """
 
     def __init__(self, dataset: ASClipDataset, batch_size: int,
@@ -249,6 +257,9 @@ class ClipLoader:
         self.seed = seed
         self._epoch = 0
         self.augment = augment
+        self._draw = dict(img_size=dataset.img_size,
+                          min_crop_ratio=min_crop_ratio,
+                          rotate_degrees=rotate_degrees)
         self.preprocess = make_preprocess_fn(
             frames_out=dataset.frames, img_size=dataset.img_size,
             do_normalize=normalize, augment=augment,
@@ -325,16 +336,21 @@ class ClipLoader:
 
     def __iter__(self) -> Iterator[Dict[str, Any]]:
         gen = torch.Generator().manual_seed(self.seed * 100003 + self._epoch)
+        rows = row_slice(self.batch_size)
         batches = self.host_batches()
         try:
             for step, hb in enumerate(batches):
-                clips = torch.from_numpy(hb.pop("clip_u8")).to(self.device)
-                t_len = torch.from_numpy(hb["t_len"]).to(self.device)
-                hb["cine"] = self.preprocess(
-                    clips, t_len, generator=gen if self.augment else None)
+                clips = torch.from_numpy(hb.pop("clip_u8")[rows]).to(
+                    self.device)
+                t_len = torch.from_numpy(hb["t_len"][rows]).to(self.device)
+                params = None
+                if self.augment:  # the global batch's draws, our rows
+                    params = tuple(p[rows] for p in sample_augment_params(
+                        gen, self.batch_size, **self._draw))
+                hb["cine"] = self.preprocess(clips, t_len, params=params)
                 hb["target_dev"] = torch.from_numpy(
-                    hb["target_AS"].astype(np.int64)).to(self.device)
-                hb["valid_dev"] = torch.from_numpy(hb["valid"]).to(
+                    hb["target_AS"][rows].astype(np.int64)).to(self.device)
+                hb["valid_dev"] = torch.from_numpy(hb["valid"][rows]).to(
                     self.device)
                 hb["step"] = step
                 yield hb

@@ -14,7 +14,9 @@ port's own, the JAX package's flax ``.ckpt`` or a migrated reference
 explanations go to ``explain_<mode>/`` (with ``model_products.pickle``),
 global ones (a push that does not replace the prototypes) to
 ``img/epoch-<e>_pushed/``; the config is dumped as
-``config_explain_<mode>.yml``. CUDA unless ``--device cpu``.
+``config_explain_<mode>.yml``. CUDA unless ``--device cpu``. Under
+``python -m torch.distributed.run`` the sweep and the push are
+data-parallel over the cards (``parallel/mesh.py``) and rank 0 writes.
 """
 
 from __future__ import annotations
@@ -28,19 +30,21 @@ __all__ = ["main"]
 def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     """Run the command line ``argv`` (default ``sys.argv[1:]``); returns
     {"agent", "local": explain_local's summary or None}."""
-    from protoasnet_tpu_torch.utils.config import dump_config, updated_config
+    from protoasnet_tpu_torch.parallel.mesh import joined_group
+    from protoasnet_tpu_torch.utils.config import updated_config
     from protoasnet_tpu_torch.utils.device import resolve_device
-    from protoasnet_tpu_torch.utils.run import (create_save_loc, set_logger,
-                                                set_seed)
 
     config = updated_config(argv)
-    resolve_device(config.get("device"))  # no card, no CPU request: raise
-    create_save_loc(config)
-    save_dir = config["save_dir"]
+    # no card, no CPU request: raise
+    with joined_group(resolve_device(config.get("device"))):
+        return _run(config)
+
+
+def _run(config: Dict[str, Any]) -> Dict[str, Any]:
+    from protoasnet_tpu_torch.utils.run import open_run, set_seed
+
     mode = config.get("eval_data_type", "test")
-    run_type = f"explain_{mode}"
-    set_logger(save_dir, config.get("log_level", "info"), run_type)
-    dump_config(config, f"{save_dir}/config_{run_type}.yml")
+    save_dir = open_run(config, f"explain_{mode}")
     set_seed(int(config["train"].get("seed", 0)))
 
     from protoasnet_tpu_torch.train.agents import build_agent

@@ -13,6 +13,10 @@ loader (on the card, the ROI-cosine kernel through ``push_forward``) and
 are cached in ``<save_dir>/explain_<mode>/model_products.pickle``. A
 sanity report of the cached predictions (mean F1, confusion matrix,
 per-class report) uses the port's numpy metrics.
+
+Under data parallelism every rank sweeps its rows and the outputs are
+gathered into the global batches (``parallel/mesh.py``); rank 0 writes the
+cache and the panels.
 """
 
 from __future__ import annotations
@@ -33,6 +37,10 @@ from protoasnet_tpu_torch.explain.render import (compose_panel_clip,
                                                  overlay_clip8, u8_clip,
                                                  upsample_occurrence_map,
                                                  write_video_or_frames)
+from protoasnet_tpu_torch.parallel.mesh import (broadcast_object,
+                                                gather_rows,
+                                                global_batch_from_local,
+                                                is_main)
 from protoasnet_tpu_torch.train.metrics import _report, confusion, \
     f1_per_class
 from protoasnet_tpu_torch.utils.io import load_pickle, save_pickle
@@ -72,11 +80,14 @@ def sweep(agent, mode: str):
     """One no-grad pass of ``agent.push_step`` over ``mode``'s loader.
     Yields, per batch: the batch, its valid-sample mask (numpy bool), the
     valid samples' similarities (1 - distance, numpy (n, P)), and the
-    whole batch's occurrence maps and logits as the step returns them."""
+    whole batch's occurrence maps and logits as the step returns them
+    (every rank's rows, with the batch's clips, under data parallelism)."""
     loader = agent.data_loaders[mode.split("_")[0]]
     with torch.no_grad():
         for batch in loader:
             _, dist, occ, logits = agent.push_step(batch["cine"])
+            dist, occ, logits = map(gather_rows, (dist, occ, logits))
+            batch = global_batch_from_local(batch)
             v = np.asarray(batch["valid"]).astype(bool)
             yield batch, v, 1.0 - _host(dist)[v], occ, logits
 
@@ -214,10 +225,12 @@ def explain_local(agent, mode: str = "test") -> Dict[str, Any]:
     prototypes of largest contribution. Config ``explain_separate_overlays:
     true`` adds the standalone ``input_overlaid/`` renders. Returns the
     counts and seconds: samples, panels, sweep_s (0 when the products came
-    from the cache), render_s and the sanity report.
+    from the cache), render_s and the sanity report (nothing on a rank
+    other than 0, which only sweeps its rows).
     """
     out_dir = os.path.join(agent.save_dir, f"explain_{mode}")
-    makedir(out_dir)
+    if is_main():
+        makedir(out_dir)
 
     cand = latest_push_pickle(os.path.join(agent.save_dir, "img"))
     proto_info = None
@@ -230,13 +243,17 @@ def explain_local(agent, mode: str = "test") -> Dict[str, Any]:
 
     cache = os.path.join(out_dir, "model_products.pickle")
     sweep_s = 0.0
-    if os.path.exists(cache):
+    if broadcast_object(os.path.exists(cache)):  # rank 0 decides
+        if not is_main():
+            return {}
         products = load_pickle(cache)
         logging.info(f"explain: reloaded cached products from {cache}")
     else:
         t0 = time.perf_counter()
         products = collect_model_products(agent, mode)
         sweep_s = time.perf_counter() - t0
+        if not is_main():
+            return {}
         save_pickle(products, cache)
     sanity = _sanity_report(products, agent.abstain_class,
                            getattr(agent, "class_labels", None))

@@ -14,7 +14,9 @@ The JAX package's ``losses/losses.py`` term by term:
 Layout: similarities are (N, P) with P grouped per class in order;
 occurrence maps are channels-last (N, [T,] H, W, P). The readout kernel is
 given as (P, K), the JAX layout (the port's ``Linear.weight`` transposed).
-``valid`` masks padding rows. The affine draw comes from an explicit
+``valid`` masks padding rows; ``count``, where given, replaces their
+count as the denominator of a masked mean (under data parallelism, the
+global batch's count: ``losses/bundle.py``). The affine draw comes from an explicit
 ``torch.Generator``; the JAX and torch RNGs give different numbers, so
 callers that compare with the JAX package pass the draw in.
 """
@@ -37,17 +39,24 @@ __all__ = ["mse_loss", "ce_loss", "cluster_patch", "separation_patch",
 _EPS = 1e-8
 
 
+def _count(valid: torch.Tensor, count: Optional[torch.Tensor]
+           ) -> torch.Tensor:
+    """A masked mean's denominator: ``count``, else the valid rows'."""
+    return valid.sum().clamp_min(1) if count is None else count
+
+
 def _reduce_rows(per_row: torch.Tensor, reduction: str,
-                 valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 valid: Optional[torch.Tensor] = None,
+                 count: Optional[torch.Tensor] = None) -> torch.Tensor:
     """On (N, K): 'mean' -> mean over the batch then sum over classes;
     'sum' -> sum of all. ``valid`` masks rows (mean divides by their
-    count)."""
+    count, or by ``count``)."""
     if reduction not in ("mean", "sum"):
         raise ValueError(f"Unknown reduction {reduction!r}")
     if valid is not None:
         per_row = per_row * valid[:, None].to(per_row.dtype)
         if reduction == "mean":
-            return per_row.sum(0).sum() / valid.sum().clamp_min(1)
+            return per_row.sum(0).sum() / _count(valid, count)
         return per_row.sum()
     if reduction == "mean":
         return per_row.mean(0).sum()
@@ -60,13 +69,14 @@ def mse_loss(pred, target, reduction: str = "mean"):
 
 
 def ce_loss(logits, target, reduction: str = "mean",
-            valid: Optional[torch.Tensor] = None):
+            valid: Optional[torch.Tensor] = None,
+            count: Optional[torch.Tensor] = None):
     logp = F.log_softmax(logits, dim=-1)
     nll = -logp.gather(-1, target.long()[:, None])[:, 0]
     if valid is not None:
         nll = nll * valid.to(nll.dtype)
         if reduction == "mean":
-            return nll.sum() / valid.sum().clamp_min(1)
+            return nll.sum() / _count(valid, count)
         return nll.sum()
     return nll.mean() if reduction == "mean" else nll.sum()
 
@@ -83,34 +93,39 @@ def _one_hot(target: torch.Tensor, num_classes: int, like: torch.Tensor
 
 def cluster_patch(min_distances, target, num_classes: int,
                   reduction: str = "mean",
-                  valid: Optional[torch.Tensor] = None):
+                  valid: Optional[torch.Tensor] = None,
+                  count: Optional[torch.Tensor] = None):
     """Pull down the min own-class patch distance."""
     one_hot = _one_hot(target, num_classes, min_distances)
     class_min = _grouped(min_distances, num_classes).amin(2)
-    return _reduce_rows(class_min * one_hot, reduction, valid)
+    return _reduce_rows(class_min * one_hot, reduction, valid, count)
 
 
 def separation_patch(min_distances, target, num_classes: int,
                      reduction: str = "mean",
-                     valid: Optional[torch.Tensor] = None):
+                     valid: Optional[torch.Tensor] = None,
+                     count: Optional[torch.Tensor] = None):
     """Push up the min other-class patch distance (the leading minus)."""
     one_hot = _one_hot(target, num_classes, min_distances)
     class_min = _grouped(min_distances, num_classes).amin(2)
-    return -_reduce_rows(class_min * (1.0 - one_hot), reduction, valid)
+    return -_reduce_rows(class_min * (1.0 - one_hot), reduction, valid,
+                         count)
 
 
 def cluster_roi(similarities, target, num_classes: int,
                 reduction: str = "mean",
-                valid: Optional[torch.Tensor] = None):
+                valid: Optional[torch.Tensor] = None,
+                count: Optional[torch.Tensor] = None):
     """-max own-class cosine similarity."""
     one_hot = _one_hot(target, num_classes, similarities)
     class_max = _grouped(similarities, num_classes).amax(2)
-    return _reduce_rows(-class_max * one_hot, reduction, valid)
+    return _reduce_rows(-class_max * one_hot, reduction, valid, count)
 
 
 def separation_roi(similarities, target, num_classes: int,
                    reduction: str = "mean", abstain_class: bool = False,
-                   valid: Optional[torch.Tensor] = None):
+                   valid: Optional[torch.Tensor] = None,
+                   count: Optional[torch.Tensor] = None):
     """+max other-class similarity; the abstain prototypes are exempt (the
     last class's one-hot is forced to 1)."""
     one_hot = _one_hot(target, num_classes, similarities)
@@ -118,7 +133,8 @@ def separation_roi(similarities, target, num_classes: int,
         one_hot = one_hot.clone()
         one_hot[:, -1] = 1.0
     class_max = _grouped(similarities, num_classes).amax(2)
-    return _reduce_rows(class_max * (1.0 - one_hot), reduction, valid)
+    return _reduce_rows(class_max * (1.0 - one_hot), reduction, valid,
+                        count)
 
 
 def orthogonality_loss(prototype_vectors, num_classes: int,
@@ -222,7 +238,8 @@ def transform_loss(x: torch.Tensor, occurrence_map: torch.Tensor,
 
 def ce_loss_abstain(logits, target, ab_weight: float = 0.3,
                     ab_logitpath: str = "joined", reduction: str = "mean",
-                    valid: Optional[torch.Tensor] = None):
+                    valid: Optional[torch.Tensor] = None,
+                    count: Optional[torch.Tensor] = None):
     """Abstention loss: virtual_pred = (1-a) * softmax(class logits) +
     a * onehot(target), with a = softmax (joined) or sigmoid (separate) of
     the K+1-th logit; NLL of virtual_pred plus ab_weight * -log(1 - a)."""
@@ -248,7 +265,7 @@ def ce_loss_abstain(logits, target, ab_weight: float = 0.3,
         per_sample_pred = per_sample_pred * v
         per_sample_abs = per_sample_abs * v
         if reduction == "mean":
-            denom = valid.sum().clamp_min(1)
+            denom = _count(valid, count)
             return per_sample_pred.sum() / denom \
                 + ab_weight * per_sample_abs.sum() / denom
         return per_sample_pred.sum() + ab_weight * per_sample_abs.sum()

@@ -6,7 +6,12 @@
   scan synchronises with the host once, at the end;
 * the winners' source clips are re-assembled once at the end from the
   recorded (video, window) metadata;
-* the abstain prototypes are not class-specific: any sample may win them.
+* the abstain prototypes are not class-specific: any sample may win them;
+* under data parallelism each rank finds its rows' winners and they are
+  merged into the global batch's first minimum
+  (``parallel.mesh.first_min_across_ranks``: a tie goes to the lowest
+  global row, as the single-process argmin gives), so every rank holds
+  the same winners; rank 0 writes the files.
 
 Writes ``prototypes_info.pickle`` with the JAX package's schema
 (channels-first layouts) and, with ``render``, each prototype's evidence;
@@ -23,6 +28,8 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from protoasnet_tpu_torch.parallel.mesh import (first_min_across_ranks,
+                                                is_main)
 from protoasnet_tpu_torch.utils.io import save_pickle
 
 __all__ = ["push_prototypes", "batch_winners"]
@@ -55,6 +62,9 @@ def _update_carry(carry, dist, occ, roi, logits, gt, valid, class_id,
     winner for a prototype whose class never appears."""
     b_dist, b_idx, b_roi, b_occ = batch_winners(
         dist, occ, roi, gt, valid, class_id, class_specific)
+    b_dist, b_idx, b_roi, b_occ, b_logits, b_gt = first_min_across_ranks(
+        b_dist, b_idx, dist.shape[0], b_roi, b_occ, logits[b_idx],
+        gt[b_idx])
     better = (b_dist <= carry["dist"]) & torch.isfinite(b_dist)
 
     def sel(new, old):
@@ -65,8 +75,8 @@ def _update_carry(carry, dist, occ, roi, logits, gt, valid, class_id,
         "dist": torch.where(better, b_dist, carry["dist"]),
         "roi": sel(b_roi.float(), carry["roi"]),
         "occ": sel(b_occ.float(), carry["occ"]),
-        "logits": sel(logits[b_idx].float(), carry["logits"]),
-        "gt": torch.where(better, gt[b_idx], carry["gt"]),
+        "logits": sel(b_logits.float(), carry["logits"]),
+        "gt": torch.where(better, b_gt, carry["gt"]),
         "batch_id": torch.where(better, carry["scan_pos"], carry["batch_id"]),
         "sample_idx": torch.where(better, b_idx, carry["sample_idx"]),
         "scan_pos": carry["scan_pos"] + 1,
@@ -212,7 +222,7 @@ def push_prototypes(
     }
 
     proto_dir = None
-    if root_dir_for_saving_prototypes is not None:
+    if root_dir_for_saving_prototypes is not None and is_main():
         proto_dir = (os.path.join(root_dir_for_saving_prototypes,
                                   f"epoch-{epoch_number}")
                      if epoch_number is not None

@@ -12,6 +12,11 @@ only the (P,)-sized winners, their (P, D) patches and (P, H', W') distance
 maps cross to the host, once per batch. The high-activation box needs
 OpenCV (a bicubic upsampling), imported where it is used; the pictures are
 composed with OpenCV and PIL (``explain/render.py``).
+
+Under data parallelism each rank finds its rows' winners and they are
+merged into the global first minimum (``parallel.mesh.
+first_min_across_ranks``), the winning image with them; the boxes' sample
+indices count the global batches' rows, and rank 0 writes the files.
 """
 
 from __future__ import annotations
@@ -25,6 +30,8 @@ import numpy as np
 import torch
 
 from protoasnet_tpu_torch.data.transforms import NORM_MEAN, NORM_STD
+from protoasnet_tpu_torch.parallel.mesh import (first_min_across_ranks,
+                                                is_main)
 from protoasnet_tpu_torch.push.receptive_field import (
     compute_proto_layer_rf_info_v2, compute_rf_prototype)
 from protoasnet_tpu_torch.utils.io import save_pickle
@@ -39,6 +46,15 @@ def _host(t: torch.Tensor) -> np.ndarray:
     fp32)."""
     t = t.detach()
     return (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
+
+
+def _rows(batch: Dict[str, Any], key: str, host_key: str, dev
+          ) -> torch.Tensor:
+    """The rank's rows of a batch field: the loader's device tensor, else
+    the host array (a batch made by hand, one process)."""
+    if key in batch:
+        return batch[key]
+    return torch.from_numpy(np.asarray(batch[host_key])).to(dev)
 
 
 def find_high_activation_crop(activation_map: np.ndarray,
@@ -118,29 +134,31 @@ def push_prototypes_patch(
 
     batch_start = 0  # running offset in the loader's order: global indices
     for batch in dataloader:
-        cine = batch["cine"]
+        cine = batch["cine"]  # the rank's rows
         conv, dist = push_step(cine)
-        gt_h = np.asarray(batch["target_AS"])
-        winners = _batch_patch_winners(
-            dist, conv, torch.from_numpy(gt_h.astype(np.int64)).to(dev),
-            torch.from_numpy(np.asarray(batch["valid"], bool)).to(dev),
-            class_id)
-        b_best = winners[0].double().cpu().numpy()
+        gt_h = np.asarray(batch["target_AS"])  # the global batch's
+        best, bi, hi, wi, patch, maps = _batch_patch_winners(
+            dist, conv, _rows(batch, "target_dev", "target_AS", dev),
+            _rows(batch, "valid_dev", "valid", dev), class_id)
+        best, bi, hi, wi, patch, maps, imgs = first_min_across_ranks(
+            best, bi, cine.shape[0], hi, wi, patch, maps, cine[bi])
+        b_best = best.double().cpu().numpy()
         # strict < as ProtoPNet's push, and the isfinite guard: a prototype
         # whose class has no valid sample in the batch gets +inf from the
         # all-masked argmin, and inf < inf must not record its index 0
         improved = np.isfinite(b_best) & (b_best < best_dist)
         if improved.any():
-            b_bi, b_hi, b_wi, b_patch, b_maps = map(_host, winners[1:])
+            b_bi, b_hi, b_wi, b_patch, b_maps, b_imgs = map(
+                _host, (bi, hi, wi, patch, maps, imgs))
             for j in np.nonzero(improved)[0]:
                 a = int(b_bi[j])
                 best_dist[j] = b_best[j]
                 best_patch[j] = b_patch[j]
                 best_loc[j] = (batch_start + a, int(b_hi[j]), int(b_wi[j]))
                 best_map[j] = b_maps[j]
-                best_img[j] = _host(cine[a])  # (H, W, 3)
+                best_img[j] = b_imgs[j]  # (H, W, 3)
                 best_gt[j] = gt_h[a]
-        batch_start += int(cine.shape[0])
+        batch_start += len(gt_h)
 
     found = sorted(best_patch)
     logging.info(f"protopnet push: scan {time.time() - t0:.1f}s, "
@@ -151,7 +169,7 @@ def push_prototypes_patch(
         img_size, ks, ss, ps, prototype_kernel_size=model.prototype_shape[2])
 
     proto_dir = None
-    if root_dir_for_saving_prototypes is not None:
+    if root_dir_for_saving_prototypes is not None and is_main():
         proto_dir = (os.path.join(root_dir_for_saving_prototypes,
                                   f"epoch-{epoch_number}")
                      if epoch_number is not None

@@ -39,6 +39,8 @@ CLI:
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import io
 import json
 import math
@@ -58,7 +60,8 @@ from protoasnet_tpu_torch.utils.device import resolve_device
 
 __all__ = ["save_serving_bundle", "load_serving_bundle",
            "load_serving_bundle_with_spec", "load_bundle_model",
-           "make_serving_fn", "load_trained_agent", "export_run",
+           "make_serving_fn", "make_sharded_serving_fn",
+           "load_trained_agent", "export_run",
            "recommend", "tune_bundle", "serving_model"]
 
 _FORMAT = "protoasnet_tpu_torch.bundle/1"
@@ -120,13 +123,49 @@ def make_serving_fn(model: torch.nn.Module, uint8_gray: bool = False
                     ) -> Callable[[np.ndarray], np.ndarray]:
     """numpy clips or images -> numpy float32 logits through ``model`` on
     its device."""
-    device = next(model.parameters()).device
-    forward = _device_forward(model, uint8_gray)
+    return make_sharded_serving_fn(
+        model, [next(model.parameters()).device], uint8_gray)
+
+
+def make_sharded_serving_fn(model: torch.nn.Module,
+                            devices: Sequence[Union[str, torch.device]],
+                            uint8_gray: bool = False
+                            ) -> Callable[[np.ndarray], np.ndarray]:
+    """numpy clips or images -> numpy float32 logits, data-parallel over
+    ``devices`` (the JAX package's ``make_sharded_serving_fn``).
+
+    Each device holds one replica of the eval-mode ``model`` (float or
+    quantised; ``model`` itself where it already lies on that device).
+    Each batch is split into equal shards of consecutive rows, padded by
+    repeating its last row where it does not split, each shard runs on its
+    device (the launches are asynchronous, so the cards overlap) and the
+    logits come back in order. A sample's logits depend on that sample
+    only, so no collective is needed. One device is ``make_serving_fn``.
+    """
+    devices = [torch.device(d) for d in devices]
+    home = next(model.parameters()).device
+    forwards = [_device_forward(
+        model if d == home else copy.deepcopy(model).to(d), uint8_gray)
+        for d in devices]
+
+    def on(d: torch.device):
+        return (torch.cuda.device(d) if d.type == "cuda"
+                else contextlib.nullcontext())
 
     def fn(x: np.ndarray) -> np.ndarray:
+        b, n = x.shape[0], len(devices)
+        k = -(-b // n)  # rows a shard
+        if k * n > b:
+            x = np.concatenate([x, np.repeat(x[-1:], k * n - b, axis=0)])
         with torch.inference_mode():
-            xt = torch.from_numpy(np.ascontiguousarray(x)).to(device)
-            return forward(xt).float().cpu().numpy()
+            outs = []
+            for i, (d, forward) in enumerate(zip(devices, forwards)):
+                with on(d):
+                    xt = torch.from_numpy(np.ascontiguousarray(
+                        x[i * k:(i + 1) * k])).to(d)
+                    outs.append(forward(xt))
+            return np.concatenate([o.float().cpu().numpy()
+                                   for o in outs])[:b]
 
     return fn
 

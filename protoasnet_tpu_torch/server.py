@@ -19,8 +19,10 @@ with the same wire protocol, so the JAX package's client works against it:
 
 A trained run directory (the port's, or the JAX package's) is served live
 with ``--run_dir``: the agent is rebuilt from the run's config and
-``last.ckpt`` and served on one device, with ``--int8`` as the w8a8 model
-calibrated on the run's train loader.
+``last.ckpt`` and served data-parallel over every local card (a replica
+each, the batch split, ``max_batch`` and the buckets in multiples of the
+card count), with ``--int8`` as the w8a8 model calibrated on the run's
+train loader. A bundle is served on one device.
 
 Usage:
     python -m protoasnet_tpu_torch.server --bundle b.zip --port 8300
@@ -48,7 +50,7 @@ import socket
 import threading
 import time
 from http.server import ThreadingHTTPServer
-from typing import Callable, List, Optional, Sequence, Tuple
+from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -960,45 +962,81 @@ def serve_forever(bundle_path: str, host: str = "0.0.0.0", port: int = 8300,
                     os.path.abspath(bundle_path)), device=dev)
 
 
+def live_devices(device=None, devices=None) -> List[Any]:
+    """The devices ``serve_live`` replicates over: ``devices`` when given,
+    else every local card for a CUDA ``device`` (the default), else the
+    CPU."""
+    import torch
+
+    from protoasnet_tpu_torch.utils.device import resolve_device
+
+    if devices is not None:
+        return [torch.device(d) for d in devices]
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        return [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    return [dev]
+
+
+def sharded_buckets(max_batch: int, n_dev: int
+                    ) -> Tuple[int, Tuple[int, ...]]:
+    """(max_batch, buckets) in multiples of the device count, so that every
+    shard of a batch is equal, as the JAX package's ``serve_live`` has
+    them: max_batch rounded down to a multiple (at least ``n_dev``), the
+    ladder of max_batch / n_dev times ``n_dev``."""
+    max_batch = max(n_dev, (max_batch // n_dev) * n_dev)
+    return max_batch, tuple(n_dev * b
+                            for b in _bucket_ladder(max_batch // n_dev))
+
+
 def serve_live(run_dir: str, host: str = "0.0.0.0", port: int = 8300,
                max_batch: int = 128, max_delay_ms: float = 5.0,
                warmup: bool = True, ready_event=None,
                uint8_input: bool = False, int8: bool = False,
                calib_batches: int = 4, stop_event=None,
-               allow_reload: bool = False, reload_root=None, device=None):
-    """Serve a trained run directory live on one device (CUDA unless
-    ``device="cpu"``), with the bucket ladder of ``max_batch``.
+               allow_reload: bool = False, reload_root=None, device=None,
+               devices=None):
+    """Serve a trained run directory live, data-parallel over every local
+    card (CUDA unless ``device="cpu"``; ``devices`` names them), with
+    ``max_batch`` and the bucket ladder in multiples of the device count
+    (``sharded_buckets``).
 
     The run (the port's, or the JAX package's) is rebuilt by
-    ``serve.load_trained_agent`` and served through the same
-    ``serve.make_serving_fn`` as an exported bundle, so on one device the
-    live logits equal the bundle's. uint8_input: raw grayscale uint8
-    frames in, the eval transform on the device. int8: the w8a8 backbone,
-    calibrated on ``calib_batches`` batches of the run's train loader
+    ``serve.load_trained_agent`` on the first device and served through
+    ``serve.make_sharded_serving_fn``, one replica a device; on one device
+    that is ``make_serving_fn``, an exported bundle's, so the live logits
+    equal the bundle's. uint8_input: raw grayscale uint8 frames in, the
+    eval transform on the device. int8: the w8a8 backbone, calibrated on
+    ``calib_batches`` batches of the run's train loader
     (``quant.calibrate_qstate_from_agent``, as ``serve export --int8``
     does, so the live logits equal the int8 bundle's).
 
     allow_reload: expose POST /v1/reload {"target": <run dir under
     reload_root>, "int8": bool?}: the new run is rebuilt (and, with int8,
-    calibrated and quantised) on the reload thread and warmed while the
-    old weights serve, then swapped in (see Reloader); ``int8`` defaults
+    calibrated and quantised) with all its replicas on the reload thread
+    and warmed while the old weights serve, then swapped in (see
+    Reloader; its side stream is on the first device); ``int8`` defaults
     to this server's. A run whose per-sample input differs is refused.
     """
     import os
 
     from protoasnet_tpu_torch.quant import calibrate_qstate_from_agent
     from protoasnet_tpu_torch.serve import (load_trained_agent,
-                                            make_serving_fn, serving_model)
-    from protoasnet_tpu_torch.utils.device import resolve_device
+                                            make_sharded_serving_fn,
+                                            serving_model)
 
-    dev = resolve_device(device)
+    devs = live_devices(device, devices)
+    dev = devs[0]
+    max_batch, buckets = sharded_buckets(max_batch, len(devs))
 
     def build(run, want_int8):
         agent, shape = load_trained_agent(run, dev)
         qstate = (calibrate_qstate_from_agent(agent, calib_batches)
                   if want_int8 else None)
         model = serving_model(agent.model, qstate)
-        return make_serving_fn(model, uint8_input), tuple(shape)
+        return (make_sharded_serving_fn(model, devs, uint8_input),
+                tuple(shape))
 
     fn, input_shape = build(run_dir, int8)
     sample_shape = input_shape[:-1] if uint8_input else input_shape
@@ -1014,8 +1052,9 @@ def serve_live(run_dir: str, host: str = "0.0.0.0", port: int = 8300,
             return new_fn, sample_shape, dtype
 
     _serve_loop(fn, sample_shape, dtype, host, port, max_batch,
-                max_delay_ms, warmup, ready_event,
-                banner=f"{run_dir} live ({dev})", stop_event=stop_event,
+                max_delay_ms, warmup, ready_event, buckets=buckets,
+                banner=f"{run_dir} live ({', '.join(map(str, devs))})",
+                stop_event=stop_event,
                 reload_build=reload_build,
                 reload_root=reload_root or os.path.dirname(
                     os.path.abspath(run_dir)), reload_int8=int8, device=dev)
@@ -1031,7 +1070,8 @@ def main(argv=None):
                      help="port bundle (serve.save_serving_bundle)")
     src.add_argument("--run_dir",
                      help="trained run dir (the port's or the JAX "
-                          "package's): serve it live on one device")
+                          "package's): serve it live over every local "
+                          "card")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     ap.add_argument("--host", default="0.0.0.0")
     ap.add_argument("--port", type=int, default=8300)

@@ -19,7 +19,10 @@ import os
 import time
 from typing import Any, Dict
 
-__all__ = ["Tracker", "JsonlTracker", "WandbTracker", "make_tracker"]
+from protoasnet_tpu_torch.parallel.mesh import is_main
+
+__all__ = ["Tracker", "NullTracker", "JsonlTracker", "WandbTracker",
+           "make_tracker"]
 
 _MODES = ("train", "val", "val_push", "test")
 
@@ -29,6 +32,13 @@ class Tracker:
         raise NotImplementedError
 
     def finish(self) -> None:
+        pass
+
+
+class NullTracker(Tracker):
+    """Logs nothing: the tracker of a rank other than 0."""
+
+    def log(self, data: Dict[str, Any]) -> None:
         pass
 
 
@@ -83,6 +93,10 @@ class WandbTracker(Tracker):
 
 
 def make_tracker(config: Dict[str, Any]) -> Tracker:
+    """The config's tracker; a ``NullTracker`` on a rank other than 0 of a
+    data-parallel run (``parallel/mesh.py``), so rank 0 alone writes."""
+    if not is_main():
+        return NullTracker()
     mode = config.get("wandb_mode", "disabled")
     save_dir = config.get("save_dir", ".")
     run_name = config.get("run_name", "run")

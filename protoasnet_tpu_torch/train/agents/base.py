@@ -15,6 +15,12 @@ msgpack ``.ckpt`` (weights, BN statistics, each optimiser's Adam state and
 accumulator, the schedulers' lr scales; ``set_state_from_jax``) and a
 reference checkpoint migrated by it to a ``.pkl`` (weights and BN
 statistics; the optimiser starts fresh, as in the JAX package).
+
+Data parallelism (``parallel/mesh.py``): under PyTorch's launcher the
+agent joins the process group, trains on ``cuda:LOCAL_RANK`` with the
+model broadcast from rank 0, rounds every batch up to a multiple of the
+number of ranks, and only rank 0 writes the checkpoints, the config dump
+and the tracker's rows; every rank reads the same checkpoint.
 """
 
 from __future__ import annotations
@@ -34,6 +40,10 @@ from protoasnet_tpu_torch.models.from_jax import (accumulator_state_from_jax,
                                                   adam_state_from_jax,
                                                   state_dict_from_jax)
 from protoasnet_tpu_torch.models.pretrained import load_pretrained_backbone
+from protoasnet_tpu_torch.parallel.mesh import (barrier, is_main,
+                                                local_device,
+                                                maybe_initialize_distributed,
+                                                replicate, world_size)
 from protoasnet_tpu_torch.tracking.trackers import make_tracker
 from protoasnet_tpu_torch.train.metrics import EpochMetrics
 from protoasnet_tpu_torch.train.optim import GROUPS, STAGES, StageOptimizers
@@ -49,20 +59,40 @@ __all__ = ["BaseAgent", "EndToEndTraining", "StagedTraining",
 
 
 def resolve_loader_batch_sizes(dl_cfg: Dict[str, Any],
-                               train_cfg: Dict[str, Any]) -> Dict[str, Any]:
+                               train_cfg: Dict[str, Any],
+                               num_devices: int = 1) -> Dict[str, Any]:
     """The train batch from ``train.batch_size``; push rides
-    push_batch_size, else eval_batch_size, else max(batch, 32). In place."""
+    push_batch_size, else eval_batch_size, else max(batch, 32). In place.
+
+    Batches split over the ranks, so each size is rounded up to a multiple
+    of ``num_devices`` (the padding rows carry valid=False). The eval
+    batch is touched only where one is in play: an explicit
+    ``eval_batch_size`` or image mode's default of 150 (video eval rides
+    the train batch), as in the JAX package."""
+    nd = int(num_devices)
     bsz = int(train_cfg.get("batch_size", dl_cfg.get("batch_size", 8)))
+    if bsz % nd:
+        bsz = -(-bsz // nd) * nd
+        logging.info(f"batch_size rounded up to {bsz} for {nd} ranks")
     dl_cfg["batch_size"] = bsz
-    dl_cfg["push_batch_size"] = int(dl_cfg.get("push_batch_size")
-                                    or dl_cfg.get("eval_batch_size")
-                                    or max(bsz, 32))
+    if "eval_batch_size" in dl_cfg or int(dl_cfg.get("frames", 32)) == 1:
+        ebsz = int(dl_cfg.get("eval_batch_size", 150))
+        if ebsz % nd:
+            dl_cfg["eval_batch_size"] = -(-ebsz // nd) * nd
+    pbsz = int(dl_cfg.get("push_batch_size")
+               or dl_cfg.get("eval_batch_size") or max(bsz, 32))
+    dl_cfg["push_batch_size"] = -(-pbsz // nd) * nd
     return dl_cfg
 
 
 class BaseAgent:
     def __init__(self, config: Dict[str, Any]):
-        self.device = resolve_device(config.get("device"))
+        device = resolve_device(config.get("device"))
+        if maybe_initialize_distributed(device):
+            logging.info(f"distributed: rank {torch.distributed.get_rank()}"
+                         f" of {world_size()}")
+        self.device = local_device(device)
+        self.num_devices = world_size()
         self.config = config
         self.model_config = dict(config["model"])
         self.train_config = config["train"]
@@ -76,14 +106,16 @@ class BaseAgent:
         model = build_model(self.model_config, device="cpu", seed=seed)
         if self.model_config.get("pretrained", False):
             load_pretrained_backbone(model, self.model_config)
-        self.model = model.to(self.device)
+        self.model = replicate(model.to(self.device))
         n_params = sum(p.numel() for p in self.model.parameters())
         logging.info(f"model {self.model_config['name']}: "
                      f"{n_params / 1e6:.2f}M params on {self.device}")
 
         self._store_cache: Dict[str, Any] = {}
-        dl_cfg = resolve_loader_batch_sizes(dict(self.data_config),
-                                            self.train_config)
+        dl_cfg = resolve_loader_batch_sizes(
+            dict(self.data_config), self.train_config, self.num_devices)
+        if not is_main():
+            barrier()  # rank 0 writes the packed stores; then we read them
         self.data_loaders = {
             name: get_as_dataloader(dl_cfg, split, mode, seed,
                                     self._store_cache, device=self.device)
@@ -91,6 +123,8 @@ class BaseAgent:
                                       ("val", "val", "val"),
                                       ("test", "test", "test"),
                                       ("train_push", "train", "push"))}
+        if is_main():
+            barrier()
 
         self.tracker = make_tracker(config)
         self.class_labels = list(CLASS_LABELS)
@@ -191,8 +225,10 @@ class BaseAgent:
     def save_checkpoint(self, is_best: bool = False) -> None:
         if not self.train_config.get("save", True):
             return
+        state = self.get_state()  # every rank: the accumulator sums ranks
+        if not is_main():
+            return
         self._ensure_config_dump()
-        state = self.get_state()
         save_step = self.train_config.get("save_step")
         if save_step is not None and self.current_epoch % int(save_step) == 0:
             save_checkpoint(state, os.path.join(
@@ -215,8 +251,10 @@ class BaseAgent:
     def save_model_w_condition(self, model_name: str, metric: float,
                                threshold: float) -> None:
         if metric > threshold:
-            save_checkpoint(self.get_state(), os.path.join(
-                self.save_dir, f"{model_name}_f1-{metric:.4f}.ckpt"))
+            state = self.get_state()
+            if is_main():
+                save_checkpoint(state, os.path.join(
+                    self.save_dir, f"{model_name}_f1-{metric:.4f}.ckpt"))
 
     def load_checkpoint_file(self, path: Optional[str]) -> None:
         """Load an explicit checkpoint or, with ``train.auto_resume``

@@ -10,7 +10,9 @@
 
 Loss: CE + ClusterPatch + SeparationPatch + L1(FC). The push is the
 spatial-patch projection (``push/push_protopnet.py``). Metrics go through
-the host, one device -> host copy per step.
+the host, one device -> host copy per step (under data parallelism, of
+every rank's rows: ``parallel/mesh.py``); rank 0 writes the CSVs and the
+push's files.
 """
 
 from __future__ import annotations
@@ -25,6 +27,8 @@ import torch
 
 from protoasnet_tpu_torch.losses.bundle import LossBundle
 from protoasnet_tpu_torch.models.layers import prototype_class_identity
+from protoasnet_tpu_torch.parallel.mesh import (gather_rows, is_main,
+                                                replicate)
 from protoasnet_tpu_torch.push.push_protopnet import push_prototypes_patch
 from protoasnet_tpu_torch.train.agents.base import (BaseAgent,
                                                    EndToEndTraining,
@@ -78,7 +82,7 @@ class _ProtoPNetCommon(BaseAgent):
             # one device -> host copy per step
             loss_terms = {k: float(v) for k, v in m.items()
                           if k.startswith("loss")}
-            logits = m["logits"].float().cpu().numpy()
+            logits = gather_rows(m["logits"]).float().cpu().numpy()
             metrics.update(logits, batch["target_AS"], batch["valid"],
                            similarities=None, loss_terms=loss_terms)
             if mode in ("val_push", "test"):
@@ -95,7 +99,7 @@ class _ProtoPNetCommon(BaseAgent):
             f"epoch/{mode}/f1_mean": summary["f1_mean"],
             f"epoch/{mode}/accuracy": summary["accuracy"],
             f"epoch/{mode}/AUC_mean": summary["AUC"]})
-        if pred_log:
+        if pred_log and is_main():
             out_dir = os.path.join(self.save_dir, f"csv_{mode}")
             os.makedirs(out_dir, exist_ok=True)
             cols = {k: np.concatenate([c[k] for c in pred_log])
@@ -119,6 +123,7 @@ class _ProtoPNetCommon(BaseAgent):
         if replace_prototypes:
             with torch.no_grad():
                 self.model.prototype_vectors.copy_(new_vectors)
+            replicate(self.model)  # rank 0's vectors on every rank
 
 
 class ProtoPNetE2EAgent(EndToEndTraining, _ProtoPNetCommon):

@@ -25,6 +25,12 @@ the push step over the eval split, ranked panels), ``explain_global`` (a
 push that renders the prototypes without replacing them) and
 ``get_sim_scores`` / ``load_sim_scores`` (per-sample similarities for
 prototype ranking, ``ranking_prototypes/sim_scores_<mode>_epoch<e>.npz``).
+
+Under data parallelism (``parallel/mesh.py``) each step runs on the rank's
+rows; the host path gathers each step's logits and similarities from all
+ranks, the device path at the epoch's end, so every rank computes the
+single-process summary, and rank 0 writes the CSVs and the files of the
+push and the explanations.
 """
 
 from __future__ import annotations
@@ -39,6 +45,8 @@ import torch
 
 from protoasnet_tpu_torch.losses.bundle import LossBundle
 from protoasnet_tpu_torch.models.layers import prototype_class_identity
+from protoasnet_tpu_torch.parallel.mesh import (gather_rows, is_main,
+                                                replicate)
 from protoasnet_tpu_torch.push.push import push_prototypes
 from protoasnet_tpu_torch.train.agents.base import (BaseAgent,
                                                    EndToEndTraining,
@@ -174,14 +182,15 @@ class _XProtoNetAgentCommon(BaseAgent):
                         dev_buf.update(m, batch["target_dev"],
                                        batch["valid_dev"])
                         continue
-                    # one device -> host copy per step
+                    # one device -> host copy per step (of every rank's
+                    # rows: the host metadata is the global batch's)
                     loss_terms = {k: float(v) for k, v in m.items()
                                   if k.startswith("loss")}
-                    logits = m["logits"].float().cpu().numpy()
+                    logits = gather_rows(m["logits"]).float().cpu().numpy()
+                    sims = gather_rows(m["similarities"]).float().cpu()
                     stats = metrics.update(
                         logits, batch["target_AS"], batch["valid"],
-                        similarities=m["similarities"].float().cpu().numpy(),
-                        loss_terms=loss_terms)
+                        similarities=sims.numpy(), loss_terms=loss_terms)
                     self.tracker.log({
                         f"batch_{mode}/step": epoch * epoch_steps
                         + batch["step"],
@@ -198,7 +207,7 @@ class _XProtoNetAgentCommon(BaseAgent):
         summary = metrics.compute()
         self._epoch_log(epoch, mode, summary, time.time() - t0)
 
-        if pred_log:
+        if pred_log and is_main():
             out_dir = os.path.join(self.save_dir, f"csv_{mode}")
             os.makedirs(out_dir, exist_ok=True)
             cols = {k: np.concatenate([c[k] for c in pred_log])
@@ -234,6 +243,7 @@ class _XProtoNetAgentCommon(BaseAgent):
         if replace_prototypes:
             with torch.no_grad():
                 self.model.prototype_vectors.copy_(new_vectors)
+            replicate(self.model)  # rank 0's vectors on every rank
 
     # ---------------- explanations ----------------
 
@@ -248,12 +258,13 @@ class _XProtoNetAgentCommon(BaseAgent):
             sims.append(sim)
             targets.append(np.asarray(batch["target_AS"])[v])
         out_dir = os.path.join(self.save_dir, "ranking_prototypes")
-        os.makedirs(out_dir, exist_ok=True)
         path = os.path.join(
             out_dir, f"sim_scores_{mode}_epoch{self.current_epoch}.npz")
-        np.savez(path, sim_scores=np.concatenate(sims),
-                 targets=np.concatenate(targets))
-        logging.info(f"sim scores written to {out_dir}")
+        if is_main():
+            os.makedirs(out_dir, exist_ok=True)
+            np.savez(path, sim_scores=np.concatenate(sims),
+                     targets=np.concatenate(targets))
+            logging.info(f"sim scores written to {out_dir}")
         return path
 
     def load_sim_scores(self, epoch: int, mode: str):

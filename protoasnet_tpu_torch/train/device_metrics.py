@@ -9,6 +9,11 @@ epoch's end one device -> host copy feeds the port's ``EpochMetrics`` as
 one mega-batch. ``train.on_device_metrics`` (default true, as in the JAX
 package) picks this path; val_push and test keep the host path, because
 their prediction CSVs need per-sample metadata.
+
+Under data parallelism each rank's buffers hold its rows of every batch;
+``finalize`` gathers them from all ranks back into the global batches'
+order, so every rank's summary is the single-process one. The loss sums
+are already the global batch's (``losses/bundle.py::global_terms``).
 """
 
 from __future__ import annotations
@@ -16,6 +21,8 @@ from __future__ import annotations
 from typing import Any, Dict, Iterable
 
 import torch
+
+from protoasnet_tpu_torch.parallel.mesh import gather_rows, world_size
 
 __all__ = ["DeviceEpochBuffer"]
 
@@ -29,6 +36,7 @@ class DeviceEpochBuffer:
                  num_prototypes: int, loss_names: Iterable[str],
                  device: torch.device):
         n = n_batches * batch_size
+        self.batch_size = batch_size
         self.loss_names = list(loss_names)
         f32 = dict(dtype=torch.float32, device=device)
         self.logits = torch.zeros((n, num_logits), **f32)
@@ -52,11 +60,21 @@ class DeviceEpochBuffer:
         self.n_batches += 1
         self._offset = rows.stop
 
+    def _global_rows(self, t: torch.Tensor) -> torch.Tensor:
+        """Every rank's rows of ``t``, in the global batches' order."""
+        w = world_size()
+        if w == 1:
+            return t
+        rest = tuple(t.shape[1:])
+        per_rank = gather_rows(t).reshape(w, -1, self.batch_size, *rest)
+        return per_rank.transpose(0, 1).reshape(-1, *rest)
+
     def finalize(self, epoch_metrics) -> Dict[str, float]:
         """One device -> host copy; feeds ``epoch_metrics`` one mega-batch
         and returns the per-batch means of the loss terms."""
-        bufs = (self.logits, self.sims, self.target, self.valid,
-                self.loss_sums, self.n_batches)
+        bufs = tuple(self._global_rows(b) for b in (
+            self.logits, self.sims, self.target, self.valid)) + (
+            self.loss_sums, self.n_batches)
         host = torch.cat([b.reshape(-1).to(torch.float32) for b in bufs]
                          ).cpu()
         logits, sims, target, valid, sums, n_b = (

@@ -18,7 +18,15 @@ The JAX package's ``train/optim.py`` in torch:
   as in optax;
 * the staged agents' ``StageOptimizers``: each stage its own ``GroupAdam``
   and ``GradAccumulator``, as the JAX package's per-stage optimiser states
-  and accumulators.
+  and accumulators;
+* under FSDP2 (``parallel/mesh.py::fsdp_param_shardings``) the parameters,
+  gradients and Adam moments are DTensors, sharded over the ranks; the
+  ``state_dict``s hold full tensors and ``load_state_dict`` shards them
+  again, and an accumulator's partial sums are the global batch's (summed
+  across ranks under data parallelism, rank 0's alone on a load), so a
+  checkpoint is the same file at any world size. FSDP2 keeps the partial
+  sums of micro-steps that do not update to itself (unsharded, off
+  ``.grad``): save its accumulator on an update's boundary.
 """
 
 from __future__ import annotations
@@ -27,6 +35,8 @@ from typing import Any, Dict, Iterable, List, Optional
 
 import torch
 from torch import nn
+
+from protoasnet_tpu_torch.parallel.mesh import all_reduce_sum, is_main
 
 __all__ = ["GROUPS", "STAGE_GROUPS", "STAGES", "group_of", "label_params",
            "GroupAdam", "GradAccumulator", "StageOptimizers",
@@ -54,6 +64,30 @@ def group_of(name: str) -> str:
     return _TOP.get(name.split(".")[0], "backbone")
 
 
+def _full(t: Any) -> Any:
+    """A DTensor's full value (one all-gather); anything else as it is."""
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
+def _global(g: torch.Tensor) -> torch.Tensor:
+    """A gradient of the global batch, full: a DTensor's (FSDP2 summed it)
+    gathered, a plain one summed across ranks (a new tensor)."""
+    g = g.detach()
+    return _full(g) if hasattr(g, "full_tensor") else \
+        all_reduce_sum(g).clone()
+
+
+def _like(t: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """A full tensor ``t`` laid out as the parameter ``p``: p's shard of it
+    when p is a DTensor (each rank cuts its own; every rank holds t)."""
+    if not hasattr(p, "device_mesh") or hasattr(t, "device_mesh"):
+        return t
+    from torch.distributed.tensor import distribute_tensor
+
+    return distribute_tensor(t.to(p.device), p.device_mesh, p.placements,
+                             src_data_rank=None)
+
+
 def label_params(model: nn.Module) -> Dict[str, List[nn.Parameter]]:
     """{group: parameters} over every group, in ``named_parameters``
     order (a group may be empty)."""
@@ -74,11 +108,15 @@ class GroupAdam:
         groups = label_params(model)
         self.weight_decay = {g: float(wd.get(g, 0.0)) for g in GROUPS}
         self.params = [p for g in GROUPS for p in groups[g]]
+        # FSDP2 keeps small parameters whole beside its DTensors: one
+        # foreach kernel cannot take both
+        mixed = any(hasattr(p, "device_mesh") for p in self.params)
         self.optimizer = torch.optim.Adam(
             [{"params": groups[g], "label": g, "lr": 0.0,
               "weight_decay": self.weight_decay[g]}
              for g in GROUPS if groups[g]],
-            lr=0.0)  # betas (0.9, 0.999), eps 1e-8: optax's scale_by_adam
+            lr=0.0,  # betas (0.9, 0.999), eps 1e-8: optax's scale_by_adam
+            foreach=False if mixed else None)
 
     def step(self, lrs: Dict[str, float], stage: str = "all") -> None:
         """One Adam step on the summed ``.grad`` with the learning rate of
@@ -103,10 +141,19 @@ class GroupAdam:
             p.grad = None
 
     def state_dict(self) -> Dict[str, Any]:
-        return self.optimizer.state_dict()
+        """``torch.optim.Adam``'s, with full tensors."""
+        st = self.optimizer.state_dict()
+        st["state"] = {i: {k: _full(v) for k, v in s.items()}
+                       for i, s in st["state"].items()}
+        return st
 
     def load_state_dict(self, state: Dict[str, Any]) -> None:
         self.optimizer.load_state_dict(state)
+        for p in self.params:
+            s = self.optimizer.state.get(p, {})
+            for k, v in s.items():
+                if isinstance(v, torch.Tensor) and v.dim() > 0:
+                    s[k] = _like(v, p)
 
 
 class GradAccumulator:
@@ -117,6 +164,10 @@ class GradAccumulator:
         self.params = list(params)
         self.every = max(int(every), 1)
         self.count = 0
+
+    def will_apply(self) -> bool:
+        """Whether the next micro-step is one the optimiser steps on."""
+        return (self.count + 1) % self.every == 0
 
     def micro_step(self) -> bool:
         """Count one micro-step; True when the optimiser should step now
@@ -129,15 +180,20 @@ class GradAccumulator:
 
     def state_dict(self) -> Dict[str, Any]:
         """The count and the partial sums in flight (None where a parameter
-        has no gradient yet)."""
+        has no gradient yet), as full tensors of the global batch: under
+        data parallelism summed across ranks, so every rank calls it."""
         return {"count": self.count,
-                "grads": [None if p.grad is None else p.grad.detach().clone()
+                "grads": [None if p.grad is None else _global(p.grad)
                           for p in self.params]}
 
     def load_state_dict(self, state: Dict[str, Any]) -> None:
+        """Under data parallelism rank 0 takes the partial sums and the
+        other ranks start from none: the update's all-reduce adds them
+        once."""
         self.count = int(state["count"])
         for p, g in zip(self.params, state["grads"]):
-            p.grad = None if g is None else g.to(p.device, p.dtype).clone()
+            p.grad = None if g is None or not is_main() else _like(
+                g.to(p.device, p.dtype).clone(), p)
 
 
 class StageOptimizers:

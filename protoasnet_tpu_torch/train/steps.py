@@ -18,6 +18,15 @@ is ``push_forward`` in eval mode. The affine draw of a step is ``affine``
 ``make_protopnet_steps`` is the JAX package's ``make_protopnet_steps``:
 one train-mode forward, CE + ClusterPatch + SeparationPatch + L1(FC), the
 same summed accumulation and masked Adam step.
+
+Under data parallelism (``parallel/mesh.py``) each rank steps on its rows
+of the global batch: its loss is its share of the global loss
+(``losses/bundle.py``), the gradients are summed across ranks only on the
+micro-step that applies the update (``sync_grads``; under FSDP2 the
+reduce-scatter is switched off on the others), and the reported loss
+terms are the global batch's (``global_terms``). The logits and
+similarities returned are the rank's rows. The affine draw is one (angle,
+scale) per step from a generator every rank seeds alike.
 """
 
 from __future__ import annotations
@@ -27,11 +36,12 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 from torch import nn
 
-from protoasnet_tpu_torch.losses.bundle import LossBundle
+from protoasnet_tpu_torch.losses.bundle import LossBundle, global_terms
 from protoasnet_tpu_torch.losses.losses import (affine_batch,
                                                 sample_affine_params)
 from protoasnet_tpu_torch.models.layers import prototype_class_identity
 from protoasnet_tpu_torch.models.norm import own_bn_stats
+from protoasnet_tpu_torch.parallel.mesh import sync_grads
 from protoasnet_tpu_torch.train.optim import GradAccumulator, GroupAdam
 
 __all__ = ["make_xprotonet_steps", "make_protopnet_steps"]
@@ -47,15 +57,33 @@ def _class_identity(model: nn.Module, device) -> torch.Tensor:
     return torch.from_numpy(prototype_class_identity(p, k)).to(device)
 
 
+def _backward(model: nn.Module, total: torch.Tensor,
+              accumulator: GradAccumulator) -> None:
+    """``total.backward()``; an FSDP2 model reduce-scatters its gradients
+    only on the micro-step that applies the update."""
+    if hasattr(model, "set_requires_gradient_sync"):
+        model.set_requires_gradient_sync(accumulator.will_apply())
+    total.backward()
+
+
 def _apply(optimizer: GroupAdam, accumulator: GradAccumulator,
            lrs: Dict[str, float], stage: str) -> bool:
-    """Count one micro-step; on every k-th, the masked Adam step on the
-    summed gradients. Returns whether the optimiser stepped."""
+    """Count one micro-step; on every k-th, the gradients summed across
+    ranks and the masked Adam step on them. Returns whether the optimiser
+    stepped."""
     applied = accumulator.micro_step()
     if applied:
+        sync_grads(optimizer.params)
         optimizer.step(lrs, stage)
         optimizer.zero_grad()
     return applied
+
+
+def _reported(total, terms, **outputs) -> Dict[str, Any]:
+    """The global batch's loss and terms beside the rank's outputs."""
+    total, terms = global_terms(total, terms)
+    return {"loss_all": total, **terms,
+            **{k: v.detach() for k, v in outputs.items()}}
 
 
 def make_xprotonet_steps(
@@ -105,11 +133,9 @@ def make_xprotonet_steps(
                 occ_t = model.compute_occurrence_map(
                     affine_batch(cine, *aff))
         total, terms = _terms(logits, sim, occ, target, valid, occ_t, aff)
-        total.backward()
+        _backward(model, total, accumulator)
         applied = _apply(optimizer, accumulator, lrs, stage)
-        return {"loss_all": total.detach(),
-                **{k: v.detach() for k, v in terms.items()},
-                "logits": logits.detach(), "similarities": sim.detach(),
+        return {**_reported(total, terms, logits=logits, similarities=sim),
                 "applied": applied}
 
     @torch.no_grad()
@@ -122,8 +148,7 @@ def make_xprotonet_steps(
         occ_t = None if aff is None else model.compute_occurrence_map(
             affine_batch(cine, *aff))
         total, terms = _terms(logits, sim, occ, target, valid, occ_t, aff)
-        return {"loss_all": total, **terms, "logits": logits,
-                "similarities": sim}
+        return _reported(total, terms, logits=logits, similarities=sim)
 
     @torch.no_grad()
     def push_step(cine):
@@ -158,20 +183,17 @@ def make_protopnet_steps(
         model.train()
         logits, min_d = model(cine)
         total, terms = _terms(logits, min_d, target, valid)
-        total.backward()
+        _backward(model, total, accumulator)
         applied = _apply(optimizer, accumulator, lrs, stage)
-        return {"loss_all": total.detach(),
-                **{k: v.detach() for k, v in terms.items()},
-                "logits": logits.detach(), "min_distances": min_d.detach(),
-                "applied": applied}
+        return {**_reported(total, terms, logits=logits,
+                            min_distances=min_d), "applied": applied}
 
     @torch.no_grad()
     def eval_step(cine, target, valid) -> Dict[str, Any]:
         model.eval()
         logits, min_d = model(cine)
         total, terms = _terms(logits, min_d, target, valid)
-        return {"loss_all": total, **terms, "logits": logits,
-                "min_distances": min_d}
+        return _reported(total, terms, logits=logits, min_distances=min_d)
 
     @torch.no_grad()
     def push_step(cine):

@@ -13,8 +13,8 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-__all__ = ["set_seed", "set_logger", "create_save_loc", "backup_code",
-           "makedir"]
+__all__ = ["set_seed", "set_logger", "create_save_loc", "open_run",
+           "backup_code", "makedir"]
 
 
 def makedir(path: str) -> None:
@@ -65,6 +65,23 @@ def create_save_loc(config: Dict[str, Any]) -> None:
         idx += 1
     makedir(save_dir)
     config["save_dir"] = save_dir
+
+
+def open_run(config: Dict[str, Any], run_type: str) -> str:
+    """An entry point's run directory (``create_save_loc``), its log file
+    and its ``config_<run_type>.yml``; returns the directory. Under data
+    parallelism rank 0 picks and writes it and the other ranks take its
+    choice (``parallel/mesh.py``)."""
+    from protoasnet_tpu_torch.parallel.mesh import broadcast_object, is_main
+    from protoasnet_tpu_torch.utils.config import dump_config
+
+    if is_main():
+        create_save_loc(config)
+    config["save_dir"] = save_dir = broadcast_object(config["save_dir"])
+    if is_main():
+        set_logger(save_dir, config.get("log_level", "info"), run_type)
+        dump_config(config, f"{save_dir}/config_{run_type}.yml")
+    return save_dir
 
 
 def backup_code(save_dir: str, src_root: Optional[str] = None) -> None:

@@ -69,7 +69,8 @@ def test_port_imports_no_jax():
                  "utils.flops", "models.surgery", "models.migrate",
                  "train.device_metrics", "quant", "ops.int8_conv",
                  "ops.affine", "models.backbones.r3d",
-                 "models.backbones.vgg", "models.backbones.densenet"):
+                 "models.backbones.vgg", "models.backbones.densenet",
+                 "parallel", "parallel.mesh"):
         assert "protoasnet_tpu_torch." + name in out["modules"], name
     assert out["bad"] == []
 
