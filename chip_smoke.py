@@ -181,7 +181,28 @@ raises and the script exits non-zero without printing a result):
    memory of each); (d) ``server.serve_live`` over every local card
    bit-equal to phase 15's logits; (e) the ROI kernel launched in each of
    (a)-(c). The workers of (a)-(c) are this script under the launcher:
-   ``chip_smoke.py dp_main|dp_gloo|dp_nccl``.
+   ``chip_smoke.py dp_main|dp_gloo|dp_nccl``;
+22. prototype tensor parallelism (``parallel/mesh.py``: ``make_mesh_2d``,
+   ``prototype_param_shardings``): (a) ``roi_cosine_cuda`` at the sharded
+   heads (N=3, 5 and 128, S=1568, P=20 and 10, D=256; bf16 and fp32) within
+   phase 2's limits of float64, and ``l2_min_cuda`` at N=20, S=49, P=15,
+   D=512, each timed beside its plain version and bound; (b) four gloo
+   ranks on cuda:0 as a 2 x 2 (data, model) mesh, the full-width fp32
+   flagship step at the global batch 6 (TF32 off): its loss within 2e-5
+   relative of the single-process step, the data replicas of
+   each shard bit-identical, the ROI kernel launched on every rank at
+   P=20, and the global batch's gradient gathered whole within 1e-4 of
+   each tensor's max of a data-parallel run's on two gloo ranks (2 x 1:
+   the same data split and BatchNorm moments, all P on each rank); against
+   one process the gradients are reported (fp32 BatchNorm's backward
+   drifts, ROADMAP §3), as are the parameters after Adam's first update
+   (it moves a gradient that sums to about 0 by +-lr); (c) a 1 x 2 mesh,
+   the bf16 micro-step at batch 5 beside phase 7's (a correctness run:
+   the collectives go through the host); (d) the push on the 2 x 2 mesh:
+   its winners and similarities those of one process; (e) ProtoPNet on a
+   1 x 2 mesh at batch 20: ``l2_min_cuda`` at P=15, the step's loss
+   within 2e-5 of one process. The workers are ``chip_smoke.py
+   tp_gloo|tp_ref|tp_pair`` under the launcher.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or of the JAX
@@ -2715,32 +2736,38 @@ DP_TRAIN_ARGS = ("--train.on_device_metrics=false",
                  "--render_prototypes=false")
 DP_BATCH = 6  # (b)-(c): the global batch, 3 rows a rank at world 2
 DP_AFFINE = (12.5, 1.25)  # (b)-(c): the TransformLoss draw, fixed
-WORKER = "WORKER "  # a torchrun worker's report line
+REPORTS = "CHIP_SMOKE_REPORTS"  # where a torchrun worker writes its report
 
 
 def _torchrun(nproc: int, *args: str, timeout: float = 300):
     """``python -m torch.distributed.run --standalone --nproc_per_node=
     nproc chip_smoke.py <args>`` in its own session (killed whole on a
-    timeout); returns the workers' reports, rank order."""
+    timeout); returns the workers' reports (a JSON file each: the ranks'
+    output shares one pipe), rank order."""
     import os
     import signal
 
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
            f"--nproc_per_node={nproc}", str(REPO / "chip_smoke.py"), *args]
-    proc = subprocess.Popen(cmd, cwd=str(REPO), stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True,
-                            start_new_session=True)
-    try:
-        out, _ = proc.communicate(timeout=timeout)
-    except subprocess.TimeoutExpired:
-        os.killpg(proc.pid, signal.SIGKILL)
-        proc.communicate()
-        raise AssertionError(f"torchrun {args[0]}: timed out")
-    if proc.returncode:
-        raise AssertionError(f"torchrun {args[0]} exited {proc.returncode}:"
-                             f"\n{out[-6000:]}")
-    reports = [json.loads(line[len(WORKER):]) for line in out.splitlines()
-               if line.startswith(WORKER)]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_reports_") as tmp:
+        proc = subprocess.Popen(cmd, cwd=str(REPO), stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True,
+                                start_new_session=True,
+                                env=dict(os.environ, **{REPORTS: tmp}))
+        try:
+            out, _ = proc.communicate(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.communicate()
+            raise AssertionError(f"torchrun {args[0]}: timed out")
+        if proc.returncode:  # the first errors (a rank's own cause), the end
+            first = [line for line in out.splitlines()
+                     if re.search(r"Error|error:|out of memory", line)][:12]
+            raise AssertionError(
+                f"torchrun {args[0]} exited {proc.returncode}:\n"
+                + "\n".join(first) + f"\n...\n{out[-6000:]}")
+        reports = [json.loads(f.read_text())
+                   for f in Path(tmp).glob("rank*.json")]
     if len(reports) != nproc:
         raise AssertionError(f"torchrun {args[0]}: {len(reports)} reports:"
                              f"\n{out[-6000:]}")
@@ -2748,11 +2775,16 @@ def _torchrun(nproc: int, *args: str, timeout: float = 300):
 
 
 def _report(**kw) -> None:
+    """This worker's report, a JSON file in the directory ``_torchrun``
+    names."""
+    import os
+
     import torch.distributed as dist
 
-    print(WORKER + json.dumps(dict(kw, rank=dist.get_rank(),
-                                   world=dist.get_world_size(),
-                                   backend=dist.get_backend())), flush=True)
+    report = dict(kw, rank=dist.get_rank(), world=dist.get_world_size(),
+                  backend=dist.get_backend())
+    (Path(os.environ[REPORTS]) / f"rank{report['rank']}.json").write_text(
+        json.dumps(report))
 
 
 def _batch_losses(run: Path):
@@ -2762,13 +2794,16 @@ def _batch_losses(run: Path):
             if "batch_train/loss_all" in r]
 
 
-def _flagship_step(dev, cfg, dtype, every, fsdp=False):
-    """(model, train step) of the flagship at full width on ``dev`` (seed
-    0, ``dtype``), replicated from rank 0, FSDP2-sharded if asked."""
+def _flagship_step(dev, cfg, dtype, every, fsdp=False, mesh=None):
+    """(model, train step, accumulator) of the flagship at full width on ``dev`` (seed
+    0, ``dtype``), replicated from rank 0, FSDP2-sharded if asked, its
+    prototypes split over ``mesh``'s model axis if given."""
     from protoasnet_tpu_torch.losses.bundle import LossBundle
     from protoasnet_tpu_torch.models.builder import build_model
     from protoasnet_tpu_torch.parallel.mesh import (fsdp_param_shardings,
-                                                    make_mesh, replicate)
+                                                    make_mesh,
+                                                    prototype_param_shardings,
+                                                    replicate)
     from protoasnet_tpu_torch.train.optim import (GROUPS, GradAccumulator,
                                                   GroupAdam)
     from protoasnet_tpu_torch.train.steps import make_xprotonet_steps
@@ -2777,12 +2812,14 @@ def _flagship_step(dev, cfg, dtype, every, fsdp=False):
     model = replicate(build_model(mcfg, device=dev, seed=0))
     if fsdp:
         fsdp_param_shardings(model, make_mesh())
+    if mesh is not None:
+        prototype_param_shardings(model, mesh)
     opt = GroupAdam(model, {gr: 1e-3 for gr in GROUPS})
+    acc = GradAccumulator(opt.params, every)
     step, _, _ = make_xprotonet_steps(
         model, LossBundle(cfg["train"]["criterion"], num_classes=4,
-                          abstain_class=True),
-        opt, GradAccumulator(opt.params, every))
-    return model, step
+                          abstain_class=True), opt, acc)
+    return model, step, acc
 
 
 def _dp_batch(dev):
@@ -2808,7 +2845,7 @@ def _fp32_step(dev, cfg, fsdp=False):
     from protoasnet_tpu_torch.train.optim import GROUPS
 
     with no_tf32():
-        model, step = _flagship_step(dev, cfg, "float32", 1, fsdp)
+        model, step, _ = _flagship_step(dev, cfg, "float32", 1, fsdp)
         x, y, v = _dp_batch(dev)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -2876,7 +2913,7 @@ def worker_dp_nccl(plain_ms: str) -> None:
     dev = local_device()
     cfg = load_model_config(VIDEO)
     roi_cosine_cuda.launches = 0
-    _, step = _flagship_step(dev, cfg, cfg["model"]["dtype"], 2)
+    _, step, _ = _flagship_step(dev, cfg, cfg["model"]["dtype"], 2)
     x = torch.randn((5, *CLIP), device=dev)
     y = torch.tensor([0, 1, 2, 0, 1], device=dev)
     v = torch.ones(5, dtype=torch.bool, device=dev)
@@ -3022,13 +3059,416 @@ def phase_distribution(dev, cfg, train, work: Path, train_rate: float,
         + d_launches
 
 
+# phase 22: prototype tensor parallelism on a 2-D (data, model) mesh
+TP_HEADS = [dict(n=n, s=8 * 14 * 14, p=p, d=256) for p in (20, 10)
+            for n in (3, 5, 128)]  # the flagship's head split over 2 and 4:
+# 3 rows a data rank in (b) and (d), 5 in (c), 128 the eval batch
+TP_PPNET_BATCH = 20  # (e): the ProtoPNet train batch of phase 9
+TP_L2 = dict(n=TP_PPNET_BATCH, s=7 * 7, p=15, d=512)  # ProtoPNet's over 2
+TP_PUSH_BATCHES = 2  # (d): push batches of DP_BATCH clips
+
+
+def _tp_group(n_data: int, n_model: int):
+    """A gloo group on cuda:0 (under the launcher) and its 2-D mesh."""
+    from protoasnet_tpu_torch.parallel.mesh import (
+        make_mesh_2d, maybe_initialize_distributed)
+
+    dev = torch.device("cuda", 0)
+    maybe_initialize_distributed(dev, backend="gloo")
+    return dev, make_mesh_2d(n_data, n_model)
+
+
+def _tp_step(dev, cfg, out: str, mesh=None):
+    """The fp32 flagship (TF32 off) at the global batch of ``DP_BATCH`` in
+    two micro-steps of one accumulation on the same rows: after the first,
+    the global batch's gradient (the accumulator's saved partial sum:
+    summed over ``data``, gathered over ``model``); after the second, which
+    updates, the parameters gathered whole. Rank 0 saves both to ``out``.
+    Returns {loss (step 1's, global), sha (of the rank's own parameters
+    after the update), local_p, step_s (the first micro-step)}."""
+    import hashlib
+
+    from protoasnet_tpu_torch.parallel.mesh import gather_shard, is_main
+    from protoasnet_tpu_torch.train.optim import GROUPS
+
+    lrs = {gr: 1e-4 for gr in GROUPS}
+    with no_tf32():
+        model, step, acc = _flagship_step(dev, cfg, "float32", 2, mesh=mesh)
+        x, y, v = _dp_batch(dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = step(x, y, v, lrs, affine=DP_AFFINE)
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+        name_of = {id(p): k for k, p in model.named_parameters()}
+        grads = {name_of[id(p)]: g.cpu() for p, g in
+                 zip(acc.params, acc.state_dict()["grads"])}
+        if not step(x, y, v, lrs, affine=DP_AFFINE)["applied"]:
+            raise AssertionError("micro-step 2 of 2 did not update")
+        sha = hashlib.sha256()
+        after = {}
+        for k, p in model.named_parameters():
+            sha.update(p.detach().cpu().numpy().tobytes())
+            after[k] = gather_shard(p.detach(), p).cpu()
+        if is_main():
+            torch.save({"grads": grads, "after": after}, out)
+    return {"loss": float(m["loss_all"]), "sha": sha.hexdigest(),
+            "local_p": int(model.prototype_vectors.shape[0]),
+            "step_s": step_s}
+
+
+def _tp_push(dev, cfg, mesh=None):
+    """The push of the full-width fp32 flagship (seed 0) over
+    ``TP_PUSH_BATCHES`` seeded global batches, each rank its rows:
+    {filenames, gts, sims} of the JAX-layout info, and the ROI kernel's
+    launches."""
+    from protoasnet_tpu_torch.models.layers import prototype_class_identity
+    from protoasnet_tpu_torch.ops.roi_cosine_cuda import roi_cosine_cuda
+    from protoasnet_tpu_torch.parallel.mesh import shard_batch
+    from protoasnet_tpu_torch.push.push import push_prototypes
+
+    rng = np.random.default_rng(22)
+    loader = []
+    for b in range(TP_PUSH_BATCHES):
+        rows = shard_batch({
+            "cine": rng.normal(size=(DP_BATCH, *CLIP)).astype(np.float32),
+            "target_dev": rng.integers(0, 3, DP_BATCH),
+            "valid_dev": np.ones(DP_BATCH, bool)}, dev)
+        loader.append(dict(
+            rows, filename=[f"clip{b}_{i}" for i in range(DP_BATCH)],
+            video_idx=np.arange(DP_BATCH) + b * DP_BATCH,
+            window_start=np.zeros(DP_BATCH, int),
+            window_end=np.full(DP_BATCH, CLIP[0])))
+    with no_tf32():
+        model, _, _ = _flagship_step(dev, cfg, "float32", 1, mesh=mesh)
+
+        @torch.no_grad()
+        def push(cine):
+            model.eval()
+            return model.push_forward(cine)
+
+        roi_cosine_cuda.launches = 0
+        _, info = push_prototypes(
+            loader, push, model.prototype_vectors,
+            class_identity=prototype_class_identity(
+                model.prototype_shape[0], model.num_classes), render=False)
+        torch.cuda.synchronize()
+    return {"filenames": info["prototypes_filenames"].tolist(),
+            "gts": info["prototypes_gts"].tolist(),
+            "sims": info["prototypes_similarity_to_src_ROIs"].tolist(),
+            "launches": roi_cosine_cuda.launches}
+
+
+def _ppnet_step(dev, mesh=None):
+    """One fp32 step (TF32 off) of ProtoPNet at full width (seed 0) on a
+    seeded batch of ``TP_PPNET_BATCH`` images: {loss, local_p, launches of
+    l2_min_cuda}."""
+    from protoasnet_tpu_torch.losses.bundle import LossBundle
+    from protoasnet_tpu_torch.models.builder import build_model
+    from protoasnet_tpu_torch.ops.l2_min_cuda import l2_min_cuda
+    from protoasnet_tpu_torch.parallel.mesh import (prototype_param_shardings,
+                                                    replicate)
+    from protoasnet_tpu_torch.train.optim import (GROUPS, GradAccumulator,
+                                                  GroupAdam)
+    from protoasnet_tpu_torch.train.steps import make_protopnet_steps
+
+    cfg = load_model_config(PPNET)
+    rng = np.random.default_rng(23)
+    n = TP_PPNET_BATCH
+    x = torch.from_numpy(rng.normal(size=(n, *PPNET["sample"])).astype(
+        np.float32)).to(dev)
+    y = torch.arange(n, device=dev) % 3
+    v = torch.ones(n, dtype=torch.bool, device=dev)
+    with no_tf32():
+        model = replicate(build_model(dict(cfg["model"], dtype="float32"),
+                                      device=dev, seed=0))
+        if mesh is not None:
+            prototype_param_shardings(model, mesh)
+        opt = GroupAdam(model, {gr: 1e-3 for gr in GROUPS})
+        step, _, _ = make_protopnet_steps(
+            model, LossBundle(cfg["train"]["criterion"], num_classes=3,
+                              abstain_class=False),
+            opt, GradAccumulator(opt.params, 1))
+        l2_min_cuda.launches = 0
+        m = step(x, y, v, {gr: 1e-4 for gr in GROUPS})
+        torch.cuda.synchronize()
+    return {"loss": float(m["loss_all"]),
+            "local_p": int(model.prototype_vectors.shape[0]),
+            "launches": l2_min_cuda.launches}
+
+
+def worker_tp_gloo(work: str) -> None:
+    """(b) and (d), under torchrun with four ranks: gloo on cuda:0 as a
+    2 x 2 mesh; ``_tp_step`` at the global batch of ``DP_BATCH``, then the
+    push."""
+    from protoasnet_tpu_torch.ops.roi_cosine_cuda import roi_cosine_cuda
+    from protoasnet_tpu_torch.parallel.mesh import shutdown_distributed
+
+    dev, mesh = _tp_group(2, 2)
+    cfg = load_model_config(VIDEO)
+    roi_cosine_cuda.launches = 0
+    step = _tp_step(dev, cfg, str(Path(work) / "tp_step.pt"), mesh)
+    launches = roi_cosine_cuda.launches
+    torch.cuda.empty_cache()
+    _report(**step, launches=launches, push=_tp_push(dev, cfg, mesh),
+            mesh=[mesh.data_rank, mesh.model_rank])
+    shutdown_distributed()
+
+
+def worker_tp_pair(plain_ms: str) -> None:
+    """(c) and (e), under torchrun with two ranks: gloo on cuda:0 as a
+    1 x 2 mesh; the bf16 micro-step at batch 5 timed as phase 7 times it,
+    then ProtoPNet's fp32 step."""
+    from protoasnet_tpu_torch.ops.roi_cosine_cuda import roi_cosine_cuda
+    from protoasnet_tpu_torch.parallel.mesh import shutdown_distributed
+    from protoasnet_tpu_torch.train.optim import GROUPS
+
+    dev, mesh = _tp_group(1, 2)
+    cfg = load_model_config(VIDEO)
+    roi_cosine_cuda.launches = 0
+    model, step, _ = _flagship_step(dev, cfg, cfg["model"]["dtype"], 2,
+                                    mesh=mesh)
+    rng = np.random.default_rng(7)  # the same batch on both model ranks
+    x = torch.from_numpy(rng.normal(size=(5, *CLIP)).astype(
+        np.float32)).to(dev)
+    y = torch.tensor([0, 1, 2, 0, 1], device=dev)
+    v = torch.ones(5, dtype=torch.bool, device=dev)
+    lrs = {gr: 1e-4 for gr in GROUPS}
+    gen = torch.Generator().manual_seed(8)
+    losses = [float(step(x, y, v, lrs, generator=gen)["loss_all"])
+              for _ in range(2)]
+    torch.cuda.synchronize()
+    iters = 8
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        step(x, y, v, lrs, generator=gen)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / iters * 1e3
+    c = {"ms": ms, "plain_ms": float(plain_ms), "losses": losses,
+         "local_p": int(model.prototype_vectors.shape[0]),
+         "launches": roi_cosine_cuda.launches}
+    del model, step
+    torch.cuda.empty_cache()
+    _report(c=c, e=_ppnet_step(dev, mesh))
+    shutdown_distributed()
+
+
+def worker_tp_ref(work: str) -> None:
+    """(b)'s data-parallel reference, under torchrun with two ranks: gloo
+    on cuda:0 as a 2 x 1 mesh (every prototype on each rank), the same
+    ``_tp_step``."""
+    from protoasnet_tpu_torch.parallel.mesh import shutdown_distributed
+
+    dev, mesh = _tp_group(2, 1)
+    _report(**_tp_step(dev, load_model_config(VIDEO),
+                       str(Path(work) / "tp_dp.pt"), mesh))
+    shutdown_distributed()
+
+
+WORKERS.update(tp_gloo=worker_tp_gloo, tp_pair=worker_tp_pair,
+               tp_ref=worker_tp_ref)
+
+
+def _tp_kernels(dev):
+    """(a): the head kernels at the sharded shapes against their float64
+    plain versions, timed (CUDA events) beside the plain version, the
+    library call and the bound; returns {kernel: [records]}."""
+    from protoasnet_tpu_torch.ops.l2_min import l2_min_torch
+    from protoasnet_tpu_torch.ops.l2_min_cuda import l2_min_cuda
+    from protoasnet_tpu_torch.ops.roi_cosine import roi_cosine_torch
+    from protoasnet_tpu_torch.ops.roi_cosine_cuda import roi_cosine_cuda
+
+    out = {"roi_cosine_cuda": [], "l2_min_cuda": []}
+    g = torch.Generator(device=dev).manual_seed(22)
+    for shape in TP_HEADS:
+        n, s, p, d = shape["n"], shape["s"], shape["p"], shape["d"]
+        occ32 = torch.rand((n, s, p), device=dev, generator=g) * 0.05
+        feat32 = torch.randn((n, s, d), device=dev, generator=g)
+        protos = torch.rand((p, d), device=dev, generator=g)
+        for dtype in (torch.float32, torch.bfloat16):
+            occ, feat = occ32.to(dtype), feat32.to(dtype)
+            err_roi, rel_roi, err_sim, _ = _head_errors(occ, feat, protos)
+            ms = time_ms(lambda: roi_cosine_cuda(occ, feat, protos), 20)
+            plain_ms = time_ms(lambda: roi_cosine_torch(occ, feat, protos),
+                               20)
+            bmm_ms = time_ms(lambda: torch.bmm(occ.transpose(1, 2), feat),
+                             20)
+            bound_ms, bound_by = head_bound_ms(n, s, p, d, dtype)
+            rec = dict(shape, dtype=str(dtype)[6:], max_abs_err=max(
+                err_roi, err_sim), ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=bmm_ms)
+            out["roi_cosine_cuda"].append(rec)
+            log(f"[22 tp head] roi_cosine_cuda {rec['dtype']} N={n} S={s} "
+                f"P={p} D={d} (staging "
+                f"{'aligned' if (p * occ.element_size()) % 16 == 0 else 'unaligned'}"
+                f"): roi max abs err {err_roi:.3e} (rel {rel_roi:.3e}), sim "
+                f"{err_sim:.3e} (limits of phase 2); wrapper call {ms:.4f} "
+                f"ms, plain {plain_ms:.4f} ms, bmm of roi alone "
+                f"{bmm_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+    n, s, p, d = TP_L2["n"], TP_L2["s"], TP_L2["p"], TP_L2["d"]
+    x = torch.sigmoid(torch.randn((n, s, d), device=dev, generator=g))
+    w = torch.rand((p, 1, 1, d), device=dev, generator=g)
+    err, scale = _l2_errors(x, w)
+    ms = time_ms(lambda: l2_min_cuda(x, w), 200)
+    plain_ms = time_ms(lambda: l2_min_torch(x, w), 200)
+    cdist_ms = time_ms(lambda: torch.cdist(
+        x.reshape(n * s, d), w.reshape(p, d),
+        compute_mode="use_mm_for_euclid_dist"), 200)
+    bound_ms, bound_by = l2_bound_ms(n, s, p, d)
+    out["l2_min_cuda"].append(dict(
+        TP_L2, dtype="float32", max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=cdist_ms))
+    log(f"[22 tp head] l2_min_cuda fp32 N={n} S={s} P={p} D={d} (a partial "
+        f"32-prototype tile): max abs err {err:.3e} (limit 1e-5 * "
+        f"{scale:.1f}), min_d == dist.amin(1); wrapper call {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, torch.cdist {cdist_ms:.4f} ms, bound "
+        f"{bound_ms:.4f} ms ({bound_by})")
+    return out
+
+
+def phase_tensor_parallel(dev, cfg, work: Path, train_rate: float):
+    """22: prototype tensor parallelism on the card (module docstring).
+    Returns ({kernel: launches on the main paths (b)-(e)}, {kernel:
+    records of (a)})."""
+    from protoasnet_tpu_torch.train.optim import group_of
+
+    t_phase = time.monotonic()
+    torch.cuda.empty_cache()
+    records = _tp_kernels(dev)
+
+    # (b) and (d) on four ranks beside the single-process step and push,
+    # then the data-parallel reference on two (2 x 1)
+    with ThreadPoolExecutor(1) as pool:
+        fut = pool.submit(_torchrun, 4, "tp_gloo", str(work), timeout=600)
+        one = _tp_step(dev, cfg, str(work / "tp_one.pt"))
+        torch.cuda.empty_cache()
+        one_push = _tp_push(dev, cfg)
+        torch.cuda.empty_cache()
+        b = fut.result()
+    dp = _torchrun(2, "tp_ref", str(work), timeout=600)
+    rel_b = max(abs(r["loss"] - one["loss"]) / abs(one["loss"]) for r in b)
+    got, ref, dp_ref = (torch.load(work / f"tp_{w}.pt")
+                        for w in ("step", "one", "dp"))
+
+    def rel(a, b, keep=lambda k: True):
+        """(max |a - b| over max |b| of a tensor, its name): the largest
+        over the tensors that ``keep``."""
+        return max(((a[k] - t).abs().max().item()
+                    / max(t.abs().max().item(), 1e-30), k)
+                   for k, t in b.items() if keep(k))
+
+    # held against the data-parallel run on the same two data ranks: the
+    # same BatchNorm moments and data split, only the prototypes split;
+    # against one process, reported: in fp32 train-mode BatchNorm's
+    # backward (the global moments' formula on two data ranks, torch's in
+    # one process) moves the trunk's gradients by a few % of a tensor's max
+    # (ROADMAP §3; equal in float64 on the CPU,
+    # tests/test_torch_port_tensor_parallel.py)
+    head = lambda k: group_of(k) != "backbone"  # noqa: E731
+    d_grad = rel(got["grads"], dp_ref["grads"])
+    d_one = rel(got["grads"], ref["grads"], head)
+    d_trunk = rel(got["grads"], ref["grads"], lambda k: not head(k))
+    d_dp = rel(dp_ref["grads"], ref["grads"])
+    d_param = rel(got["after"], ref["after"])
+    # Adam's first update is lr * g / (|g| + eps): a gradient that sums to
+    # about 0 takes +-lr on the fp32 rounding of its terms, so the
+    # parameters after it are reported and the gradient is held
+    flips = sum(int(((got["after"][k] - ref["after"][k]).abs()
+                     > 1e-5 * t.abs().max()).sum())
+                for k, t in ref["after"].items())
+    if abs(dp[0]["loss"] - one["loss"]) > 2e-5 * abs(one["loss"]):
+        raise AssertionError(f"(b) the 2 x 1 reference {dp} vs one "
+                             f"process {one}")
+    replicas = [b[0]["sha"] == b[2]["sha"], b[1]["sha"] == b[3]["sha"]]
+    if [r["mesh"] for r in b] != [[0, 0], [0, 1], [1, 0], [1, 1]] or \
+            {r["local_p"] for r in b} != {one["local_p"] // 2} or \
+            rel_b > 2e-5 or d_grad[0] > 1e-4 or not all(replicas) or \
+            set(got["after"]) != set(ref["after"]) or \
+            not all(r["launches"] for r in b):
+        raise AssertionError(
+            f"(b) {[dict(r, push=None) for r in b]} vs one process {one}; "
+            f"gradients vs 2 x 1 {d_grad}, vs one process {d_one} (head), "
+            f"{d_trunk} (trunk), parameters {d_param}")
+    log(f"[22 tp step] 4 gloo ranks on cuda:0 as a 2 x 2 (data, model) "
+        f"mesh (a correctness run, the collectives go through the host), "
+        f"fp32 flagship step at the global batch {DP_BATCH}, "
+        f"{b[0]['local_p']} prototypes a model rank: losses "
+        f"{[r['loss'] for r in b]} vs one process {one['loss']!r} (max "
+        f"relative {rel_b:.3e}, limit 2e-5); the global batch's gradient "
+        f"gathered whole vs the 2 x 1 data-parallel run's (loss "
+        f"{dp[0]['loss']!r}): max {d_grad[0]:.3e} of a tensor's max "
+        f"({d_grad[1]}; limit 1e-4, phase 11's for fp32 gradients); vs one "
+        f"process's, reported: the head's (add-on, occurrence, prototypes, "
+        f"readout) {d_one[0]:.3e} ({d_one[1]}), the trunk's "
+        f"{d_trunk[0]:.3e} ({d_trunk[1]}), the 2 x 1 run's {d_dp[0]:.3e} "
+        f"({d_dp[1]}); the parameters after the update: max "
+        f"{d_param[0]:.3e} of a tensor's max, {flips} elements past 1e-5 of "
+        f"it "
+        f"(Adam's first step, reported); data replicas of each shard "
+        f"bit-identical {replicas}; the first micro-step "
+        f"{1e3 * max(r['step_s'] for r in b):.1f} ms against one "
+        f"process's {1e3 * one['step_s']:.1f} ms (side by side); "
+        f"roi_cosine_cuda launches {[r['launches'] for r in b]}")
+    for r in b:
+        got = r["push"]
+        if got["filenames"] != one_push["filenames"] or \
+                got["gts"] != one_push["gts"] or not np.allclose(
+                    got["sims"], one_push["sims"], rtol=1e-5, atol=1e-6) \
+                or not got["launches"]:
+            raise AssertionError(f"(d) rank {r['rank']} push {got} vs one "
+                                 f"process {one_push}")
+    d_sims = max(float(np.abs(np.subtract(r["push"]["sims"],
+                                          one_push["sims"])).max())
+                 for r in b)
+    log(f"[22 tp push] the push on the 2 x 2 mesh over {TP_PUSH_BATCHES} "
+        f"batches of {DP_BATCH} clips: the winners and their classes of one "
+        f"process on every rank, similarities within {d_sims:.3e}; "
+        f"roi_cosine_cuda launches {[r['push']['launches'] for r in b]} "
+        f"(one process {one_push['launches']})")
+
+    # (c) and (e) on a 1 x 2 mesh, nothing else on the card
+    pair = _torchrun(2, "tp_pair", f"{1e3 * 5 / train_rate:.4f}",
+                     timeout=600)
+    ppnet_one = _ppnet_step(dev)
+    c = [r["c"] for r in pair]
+    e = [r["e"] for r in pair]
+    if c[0]["losses"] != c[1]["losses"] or \
+            not np.all(np.isfinite(c[0]["losses"])) or \
+            {r["local_p"] for r in c} != {one["local_p"] // 2} or \
+            not all(r["launches"] for r in c):
+        raise AssertionError(f"(c) {c}")
+    log(f"[22 tp bf16] 2 gloo ranks on cuda:0 as a 1 x 2 mesh, "
+        f"{c[0]['local_p']} prototypes a rank (bf16: the unaligned staging): "
+        f"bf16 train micro-step at batch 5 {c[0]['ms']:.2f} / "
+        f"{c[1]['ms']:.2f} ms (ranks) against phase 7's "
+        f"{c[0]['plain_ms']:.2f} ms in one process (a correctness run); "
+        f"losses {c[0]['losses']} equal on both ranks; roi_cosine_cuda "
+        f"launches {[r['launches'] for r in c]}")
+    rel_e = max(abs(r["loss"] - ppnet_one["loss"]) / abs(ppnet_one["loss"])
+                for r in e)
+    if rel_e > 2e-5 or {r["local_p"] for r in e} != {
+            ppnet_one["local_p"] // 2} or not all(r["launches"] for r in e):
+        raise AssertionError(f"(e) {e} vs one process {ppnet_one}")
+    log(f"[22 tp ppnet] ProtoPNet on the 1 x 2 mesh, {e[0]['local_p']} "
+        f"prototypes a rank: fp32 step loss {[r['loss'] for r in e]} vs one "
+        f"process {ppnet_one['loss']!r} (max relative {rel_e:.3e}, limit "
+        f"2e-5); l2_min_cuda launches {[r['launches'] for r in e]}")
+    launches = {
+        "roi_cosine_cuda": sum(r["launches"] + r["push"]["launches"]
+                               for r in b) + sum(r["launches"] for r in c),
+        "l2_min_cuda": sum(r["launches"] for r in e)}
+    log(f"[22 tp] launches on the tensor-parallel paths (b)-(e): "
+        f"{launches}; phase 22 took {time.monotonic() - t_phase:.1f}s")
+    return launches, records
+
+
 def _record(r):
     return {k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                               "bound_by", "library_ms")}
 
 
 def main() -> int:
-    if len(sys.argv) > 1:  # a worker of phase 21, started by torchrun
+    if len(sys.argv) > 1:  # a worker of phase 21 or 22, under torchrun
         WORKERS[sys.argv[1]](*sys.argv[2:])
         return 0
     if not torch.cuda.is_available():
@@ -3047,7 +3487,7 @@ def main() -> int:
 
 
 def _phases(dev, card: str, cfgs, work: Path) -> int:
-    """Phases 1-21; the training runs stay under ``work`` for 13-21."""
+    """Phases 1-22; the training runs stay under ``work`` for 13-22."""
     from protoasnet_tpu_torch.ops import fused_c2p1d_cuda as fused_mod
     from protoasnet_tpu_torch.ops import l2_min_cuda as l2_mod
     from protoasnet_tpu_torch.ops import roi_cosine_cuda as roi_mod
@@ -3133,16 +3573,24 @@ def _phases(dev, card: str, cfgs, work: Path) -> int:
     # before each and read just after
     launches["roi_cosine_cuda"] += phase_distribution(
         dev, cfgs[VIDEO["label"]], train_counts, work, train_rate, live15)
+    # prototype tensor parallelism: each 2-D path with the counts set to 0
+    # just before it and read just after
+    tp_launches, tp_records = phase_tensor_parallel(
+        dev, cfgs[VIDEO["label"]], work, train_rate)
+    for name, count in tp_launches.items():
+        launches[name] += count
     print(card)
     print(json.dumps({"kernels": [
         dict(name="roi_cosine_cuda", route="cuda", source=roi_mod.SOURCE,
              replaces=roi_mod.REPLACES,
              launches=launches["roi_cosine_cuda"], **head,
              backward=dict(backward, calls=train_counts["backward_calls"]
-                           + roi_calls)),
+                           + roi_calls),
+             sharded=tp_records["roi_cosine_cuda"]),
         dict(name="l2_min_cuda", route="cuda", source=l2_mod.SOURCE,
              replaces=l2_mod.REPLACES, launches=launches["l2_min_cuda"],
-             **l2, backward=dict(l2_backward, calls=l2_calls)),
+             **l2, backward=dict(l2_backward, calls=l2_calls),
+             sharded=tp_records["l2_min_cuda"]),
         dict(name="temporal_conv_cuda", route="cuda",
              source=temporal_mod.SOURCE, replaces=temporal_mod.REPLACES,
              launches=launches["temporal_conv_cuda"],

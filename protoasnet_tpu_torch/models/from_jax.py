@@ -13,7 +13,10 @@ the JAX tree, so each JAX key maps to one state_dict key:
   prototype_vectors          -> prototype_vectors, unchanged: (P,D) for
                                 XProtoNet, (P,kh,kw,D) for PPNet
 
-Any key missing on either side, or a shape that disagrees, raises.
+Any key missing on either side, or a shape that disagrees, raises. A
+model under prototype tensor parallelism
+(``parallel.mesh.prototype_param_shardings``) takes the full JAX arrays
+and keeps its own block of each sharded one.
 
 The optimiser state of a JAX checkpoint maps the same way: optax's
 ``chain(<weight decay>, scale_by_adam)`` state, serialised by flax as
@@ -33,6 +36,8 @@ from typing import Any, Dict, Iterator, List, Mapping, Tuple, Union
 import numpy as np
 import torch
 from torch import nn
+
+from protoasnet_tpu_torch.parallel.mesh import local_shard
 
 __all__ = ["jax_to_state_dict", "state_dict_to_jax", "state_dict_from_jax",
            "load_jax_variables",
@@ -156,12 +161,15 @@ def state_dict_from_jax(model: nn.Module, params: Mapping[str, Any],
         raise KeyError(f"JAX variables do not match the model: missing "
                        f"{missing[:8]}{'...' if len(missing) > 8 else ''}, "
                        f"extra {extra[:8]}{'...' if len(extra) > 8 else ''}")
+    params = dict(model.named_parameters())
     out = {}
     for k, cur in target.items():
         if k not in expected:
             out[k] = cur
             continue
         val = sd[k]
+        if k in params:
+            val = local_shard(_tensor(val), params[k])
         if tuple(val.shape) != tuple(cur.shape):
             raise ValueError(f"{k}: JAX shape {tuple(val.shape)} != "
                              f"model shape {tuple(cur.shape)}")

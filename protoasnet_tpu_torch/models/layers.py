@@ -123,7 +123,8 @@ class BottleneckAddOn(nn.Module):
 
 class OccurrenceModule(nn.Module):
     """Linear(C->D) ReLU Linear(D->D/2) ReLU Linear(D/2->P, no bias).
-    The caller applies |.|."""
+    The caller applies |.|; ``enter`` takes the hidden features into the
+    final Linear (under prototype tensor parallelism, ``copy_to_model``)."""
 
     def __init__(self, in_features: int, hidden: int, num_prototypes: int):
         super().__init__()
@@ -131,10 +132,10 @@ class OccurrenceModule(nn.Module):
         self.Dense_1 = nn.Linear(hidden, hidden // 2)
         self.Dense_2 = nn.Linear(hidden // 2, num_prototypes, bias=False)
 
-    def forward(self, x):
+    def forward(self, x, enter=None):
         x = torch.relu(self.Dense_0(x))
         x = torch.relu(self.Dense_1(x))
-        return self.Dense_2(x)
+        return self.Dense_2(x if enter is None else enter(x))
 
 
 class PrototypeReadout(nn.Module):

@@ -15,11 +15,13 @@ of a rematerialised trunk block (``backbones/r2plus1d.py``) run under it,
 so each train step writes the statistics once, as flax's functional
 ``batch_stats`` are written.
 
-Under data parallelism (a process group of more than one rank,
-``parallel/mesh.py``) a train-mode forward normalises with the statistics
-of the global batch, as the JAX module does under GSPMD: its own formula,
+Under data parallelism (more than one rank on the ``data`` axis of the
+mesh, ``parallel/mesh.py``; model ranks hold the same rows and are not
+counted) a train-mode forward normalises with the statistics of the
+global batch, as the JAX module does under GSPMD: its own formula,
 the fp32 (or float64) ``E[x^2] - E[x]^2`` floored at 0, from the sum, the
-sum of squares and the count all-reduced across ranks (one collective),
+sum of squares and the count all-reduced over the ``data`` group (one
+collective),
 and the running variance Bessel-corrected over the global count. The
 all-reduce is differentiable (``all_reduce_sum``): the backward sums the
 two moments' gradients across ranks, so each rank's input gradient is
@@ -33,7 +35,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from protoasnet_tpu_torch.parallel.mesh import all_reduce_sum, world_size
+from protoasnet_tpu_torch.parallel.mesh import (all_reduce_sum, data_group,
+                                                data_size)
 
 __all__ = ["BatchNorm", "BatchNorm2D", "own_bn_stats", "global_batch_norm"]
 
@@ -47,7 +50,7 @@ def global_batch_norm(bn: nn.modules.batchnorm._BatchNorm,
     xf = x.to(torch.promote_types(x.dtype, torch.float32))
     moments = all_reduce_sum(torch.cat([
         xf.sum(dims), (xf * xf).sum(dims),
-        xf.new_full((1,), float(x.numel() // c))]))
+        xf.new_full((1,), float(x.numel() // c))]), data_group())
     n = moments[2 * c]
     mean = moments[:c] / n
     var = torch.clamp_min(moments[c:2 * c] / n - mean * mean, 0.0)
@@ -69,7 +72,7 @@ class _GlobalStats:
     parallelism; torch's BatchNorm otherwise."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training and world_size() > 1:
+        if self.training and data_size() > 1:
             return global_batch_norm(self, x)
         return super().forward(x)
 

@@ -22,6 +22,13 @@ the JAX package's Pallas head, a tied minimum's cotangent to its first
 position), on the CPU torch's autograd of the plain head (a tie's
 cotangent split evenly, as JAX's default "xla" head does); other
 prototype sizes through torch's autograd of ``l2_patch_distances``.
+
+Under prototype tensor parallelism (``prototype_shard``) each model rank
+holds P/m prototypes and the readout's columns for them: the replicated
+add-on features enter the head through ``copy_to_model``, each rank runs
+the distance + min head at P/m, its partial logits are summed over
+``model`` and ``forward`` returns the whole (N, P) minimum distances;
+``push_forward``'s distances stay the rank's own.
 """
 
 from __future__ import annotations
@@ -37,6 +44,9 @@ from protoasnet_tpu_torch.models.layers import (AddOnLayers, BottleneckAddOn,
                                                 bf16_autocast, init_weights_)
 from protoasnet_tpu_torch.ops.l2_min import l2_min_head
 from protoasnet_tpu_torch.ops.l2conv import l2_patch_distances
+from protoasnet_tpu_torch.parallel.mesh import (PrototypeShard, copy_to_model,
+                                                gather_from_model,
+                                                reduce_from_model)
 
 __all__ = ["PPNet", "EPSILON"]
 
@@ -82,6 +92,12 @@ class PPNet(nn.Module):
         self.prototype_vectors = nn.Parameter(torch.empty(p, kh, kw, d))
         self.last_layer = PrototypeReadout(p, self.num_classes)
 
+    @property
+    def prototype_shard(self) -> Optional[PrototypeShard]:
+        """This model rank's block of P (``prototype_vectors``' record,
+        set by ``parallel.mesh.prototype_param_shardings``), or None."""
+        return getattr(self.prototype_vectors, "prototype_shard", None)
+
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
         """The JAX package's init, drawn from ``generator`` (a CPU
@@ -115,11 +131,13 @@ class PPNet(nn.Module):
         return dist, dist.amin(dim=(1, 2))
 
     def forward(self, x: torch.Tensor):
-        _, min_distances = self._distances(self.conv_features(x))
+        shard = self.prototype_shard
+        _, min_distances = self._distances(
+            copy_to_model(self.conv_features(x), shard))
         activations = self.distance_2_similarity(min_distances)
         with self._autocast(x):
-            logits = self.last_layer(activations)
-        return logits, min_distances
+            logits = reduce_from_model(self.last_layer(activations), shard)
+        return logits, gather_from_model(min_distances, 1, shard)
 
     def push_forward(self, x: torch.Tensor):
         conv = self.conv_features(x)

@@ -15,6 +15,17 @@ are Linears over channels and the occurrence map comes back channels-last
 ``dtype=torch.bfloat16`` runs the convs and Linears under bf16 autocast
 (BatchNorm statistics stay fp32); the prototype head takes the bf16
 occurrence and features and computes in fp32.
+
+Under prototype tensor parallelism (``prototype_shard``, set by
+``parallel.mesh.prototype_param_shardings``) each model rank holds P/m
+prototypes, the occurrence module's final rows for them and the readout's
+columns: the replicated features enter the head through ``copy_to_model``
+(their gradient summed over ``model``), each rank computes its (N, S, P/m)
+occurrence maps and runs the ROI head on its own prototypes (the CUDA
+kernel at P/m on the card), its readout's partial logits are summed over
+``model`` (``reduce_from_model``), and ``forward`` returns the whole (N, P)
+similarities (``gather_from_model``). The occurrence maps and
+``push_forward``'s ROI features and distances stay the rank's own.
 """
 
 from __future__ import annotations
@@ -29,6 +40,9 @@ from protoasnet_tpu_torch.models.layers import (AddOnLayers, OccurrenceModule,
                                                 PrototypeReadout,
                                                 bf16_autocast, init_weights_)
 from protoasnet_tpu_torch.ops.roi_cosine import roi_cosine_head
+from protoasnet_tpu_torch.parallel.mesh import (PrototypeShard, copy_to_model,
+                                                gather_from_model,
+                                                reduce_from_model)
 
 __all__ = ["XProtoNet"]
 
@@ -56,6 +70,12 @@ class XProtoNet(nn.Module):
         # set by reset_parameters (builder) or from a checkpoint
         self.last_layer = PrototypeReadout(p, self.num_classes)
 
+    @property
+    def prototype_shard(self) -> Optional[PrototypeShard]:
+        """This model rank's block of P (``prototype_vectors``' record,
+        set by ``parallel.mesh.prototype_param_shardings``), or None."""
+        return getattr(self.prototype_vectors, "prototype_shard", None)
+
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
         """The JAX package's init, drawn from ``generator`` (a CPU
@@ -76,24 +96,34 @@ class XProtoNet(nn.Module):
         fmap = self.cnn_backbone(x.permute(0, nd - 1, *range(1, nd - 1)))
         return fmap.permute(0, *range(2, nd), 1).contiguous()
 
+    def _enter(self, t: torch.Tensor) -> torch.Tensor:
+        return copy_to_model(t, self.prototype_shard)
+
+    def _occurrence(self, fmap: torch.Tensor) -> torch.Tensor:
+        return torch.abs(self.occurrence_module(fmap, enter=self._enter))
+
     def _heads(self, x: torch.Tensor):
+        """(roi, sim, occ, logits) with the rank's prototypes' roi, sim and
+        occurrence maps and the whole logits."""
         with self._autocast(x):
             fmap = self._features(x)
             feat = self.add_on_layers(fmap)
-            occ = torch.abs(self.occurrence_module(fmap))
-        roi, sim = roi_cosine_head(occ, feat, self.prototype_vectors,
+            occ = self._occurrence(fmap)
+        roi, sim = roi_cosine_head(occ, self._enter(feat),
+                                   self.prototype_vectors,
                                    impl=self.head_impl)
         with self._autocast(x):
-            logits = self.last_layer(sim)
+            logits = reduce_from_model(self.last_layer(sim),
+                                       self.prototype_shard)
         return roi, sim, occ, logits
 
     def forward(self, x: torch.Tensor):
         _, sim, occ, logits = self._heads(x)
-        return logits, sim, occ
+        return logits, gather_from_model(sim, 1, self.prototype_shard), occ
 
     def compute_occurrence_map(self, x: torch.Tensor) -> torch.Tensor:
         with self._autocast(x):
-            return torch.abs(self.occurrence_module(self._features(x)))
+            return self._occurrence(self._features(x))
 
     def push_forward(self, x: torch.Tensor):
         roi, sim, occ, logits = self._heads(x)

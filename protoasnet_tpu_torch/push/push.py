@@ -11,7 +11,13 @@
   merged into the global batch's first minimum
   (``parallel.mesh.first_min_across_ranks``: a tie goes to the lowest
   global row, as the single-process argmin gives), so every rank holds
-  the same winners; rank 0 writes the files.
+  the same winners; rank 0 writes the files;
+* under prototype tensor parallelism (``prototype_vectors`` a block of
+  the ``model`` axis, ``parallel.mesh.prototype_param_shardings``) each
+  model rank pushes its own P/m prototypes over its data rank's rows, the
+  winners merged over the ``data`` group as above; the winners are then
+  gathered over ``model`` so that every rank holds all P (the pickle keeps
+  the JAX package's layout), and each rank replaces its own rows.
 
 Writes ``prototypes_info.pickle`` with the JAX package's schema
 (channels-first layouts) and, with ``render``, each prototype's evidence;
@@ -29,7 +35,7 @@ import numpy as np
 import torch
 
 from protoasnet_tpu_torch.parallel.mesh import (first_min_across_ranks,
-                                                is_main)
+                                                gather_from_model, is_main)
 from protoasnet_tpu_torch.utils.io import save_pickle
 
 __all__ = ["push_prototypes", "batch_winners"]
@@ -126,16 +132,19 @@ def push_prototypes(
                              "classes")
         proto_class_specific[k_real * (p // k):p] = False
     dev = prototype_vectors.device
+    shard = getattr(prototype_vectors, "prototype_shard", None)
+    mine = slice(0, p) if shard is None else slice(
+        shard.offset, shard.offset + shard.local)
     class_id = torch.from_numpy(
-        np.argmax(class_identity, axis=1).astype(np.int64)).to(dev)
-    class_spec = torch.from_numpy(proto_class_specific).to(dev)
+        np.argmax(class_identity, axis=1).astype(np.int64)[mine]).to(dev)
+    class_spec = torch.from_numpy(proto_class_specific[mine]).to(dev)
 
     carry = None
     batch_meta = []  # host window metadata per batch, by batch_id
     for batch in dataloader:
         roi, dist, occ, logits = push_step(batch["cine"])
         if carry is None:
-            carry = _init_carry(p, roi, occ, logits, dev)
+            carry = _init_carry(roi.shape[1], roi, occ, logits, dev)
         carry = _update_carry(carry, dist.float(), occ, roi, logits,
                               batch["target_dev"], batch["valid_dev"],
                               class_id, class_spec)
@@ -147,7 +156,9 @@ def push_prototypes(
         })
     if carry is None:
         raise ValueError("push dataloader yielded no batches")
-    host = {name: t.cpu().numpy() for name, t in carry.items()}
+    # every model rank's winners: all P
+    host = {name: gather_from_model(t, 0, shard).cpu().numpy()
+            for name, t in carry.items() if name not in ("roi", "scan_pos")}
     best_dist = host["dist"].astype(np.float64)
     best_gt = host["gt"].astype(np.int32)
     found = [j for j in range(p) if host["batch_id"][j] >= 0]
@@ -250,7 +261,9 @@ def push_prototypes(
                             f"matched; unmatched prototypes keep their "
                             f"vectors")
         new_vectors = prototype_vectors.detach().clone()
-        idx = torch.tensor(found, dtype=torch.int64, device=dev)
+        idx = torch.tensor([j - mine.start for j in found
+                            if mine.start <= j < mine.stop],
+                           dtype=torch.int64, device=dev)
         new_vectors[idx] = carry["roi"][idx].to(new_vectors.dtype)
         logging.info("push: prototype vectors replaced with winning ROI "
                      "features")

@@ -17,6 +17,9 @@ Under data parallelism each rank finds its rows' winners and they are
 merged into the global first minimum (``parallel.mesh.
 first_min_across_ranks``), the winning image with them; the boxes' sample
 indices count the global batches' rows, and rank 0 writes the files.
+Under prototype tensor parallelism (the model's ``prototype_shard``) each
+model rank pushes its own P/m prototypes, the winners are gathered over
+``model`` before the boxes and files, and each rank replaces its own rows.
 """
 
 from __future__ import annotations
@@ -30,7 +33,9 @@ import numpy as np
 import torch
 
 from protoasnet_tpu_torch.data.transforms import NORM_MEAN, NORM_STD
-from protoasnet_tpu_torch.parallel.mesh import (first_min_across_ranks,
+from protoasnet_tpu_torch.parallel.mesh import (PrototypeShard,
+                                                first_min_across_ranks,
+                                                gather_objects_from_model,
                                                 is_main)
 from protoasnet_tpu_torch.push.receptive_field import (
     compute_proto_layer_rf_info_v2, compute_rf_prototype)
@@ -120,10 +125,12 @@ def push_prototypes_patch(
     """
     t0 = time.time()
     vectors = model.prototype_vectors
-    p = class_identity.shape[0]
+    shard = getattr(model, "prototype_shard", None)
+    p = vectors.shape[0]  # this rank's; class_identity has every rank's
+    lo = 0 if shard is None else shard.offset
     dev = vectors.device
-    class_id = torch.from_numpy(
-        np.argmax(class_identity, axis=1).astype(np.int64)).to(dev)
+    class_id = torch.from_numpy(np.argmax(
+        class_identity, axis=1).astype(np.int64)[lo:lo + p]).to(dev)
 
     best_dist = np.full(p, np.inf)
     best_patch: Dict[int, np.ndarray] = {}
@@ -160,7 +167,15 @@ def push_prototypes_patch(
                 best_gt[j] = gt_h[a]
         batch_start += len(gt_h)
 
-    found = sorted(best_patch)
+    mine = sorted(best_patch)  # this rank's, for the replacement
+    patches_mine = [best_patch[j] for j in mine]
+    if shard is not None and shard.size > 1:
+        best_dist, best_loc, best_map, best_img, best_gt = _gather_winners(
+            shard, best_dist, best_loc, best_map, best_img, best_gt)
+        found = sorted(best_loc)
+        p = shard.total
+    else:
+        found = mine
     logging.info(f"protopnet push: scan {time.time() - t0:.1f}s, "
                  f"{len(found)}/{p} matched")
 
@@ -205,13 +220,30 @@ def push_prototypes_patch(
         save_pickle(info, os.path.join(proto_dir, "prototypes_info.pickle"))
 
     new_vectors = vectors
-    if replace_prototypes and found:
+    if replace_prototypes and mine:
         new_vectors = vectors.detach().clone()
-        idx = torch.tensor(found, dtype=torch.int64, device=dev)
-        patches = torch.from_numpy(np.stack([best_patch[j] for j in found]))
+        idx = torch.tensor(mine, dtype=torch.int64, device=dev)
+        patches = torch.from_numpy(np.stack(patches_mine))
         new_vectors[idx, 0, 0] = patches.to(dev, new_vectors.dtype)
     logging.info(f"protopnet push total: {time.time() - t0:.1f}s")
     return new_vectors, info
+
+
+def _gather_winners(shard: PrototypeShard, best_dist, best_loc, best_map,
+                    best_img, best_gt):
+    """Every model rank's winners (its prototypes j as j + its offset):
+    (best_dist, best_loc, best_map, best_img, best_gt) over all P."""
+    parts = gather_objects_from_model(
+        (best_dist, best_loc, best_map, best_img, best_gt), shard)
+    dists, gts = [], []
+    locs, maps, imgs = {}, {}, {}
+    for r, (d, loc, m, img, gt) in enumerate(parts):
+        off = r * shard.local
+        dists.append(d)
+        gts.append(gt)
+        for j in loc:
+            locs[j + off], maps[j + off], imgs[j + off] = loc[j], m[j], img[j]
+    return np.concatenate(dists), locs, maps, imgs, np.concatenate(gts)
 
 
 def _render_protopnet(proto_dir: str, j: int, img_norm: np.ndarray,

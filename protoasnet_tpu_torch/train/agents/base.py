@@ -40,7 +40,7 @@ from protoasnet_tpu_torch.models.from_jax import (accumulator_state_from_jax,
                                                   adam_state_from_jax,
                                                   state_dict_from_jax)
 from protoasnet_tpu_torch.models.pretrained import load_pretrained_backbone
-from protoasnet_tpu_torch.parallel.mesh import (barrier, is_main,
+from protoasnet_tpu_torch.parallel.mesh import (barrier, data_size, is_main,
                                                 local_device,
                                                 maybe_initialize_distributed,
                                                 replicate, world_size)
@@ -92,7 +92,7 @@ class BaseAgent:
             logging.info(f"distributed: rank {torch.distributed.get_rank()}"
                          f" of {world_size()}")
         self.device = local_device(device)
-        self.num_devices = world_size()
+        self.num_devices = data_size()
         self.config = config
         self.model_config = dict(config["model"])
         self.train_config = config["train"]

@@ -22,7 +22,7 @@ from typing import Any, Dict, Iterable
 
 import torch
 
-from protoasnet_tpu_torch.parallel.mesh import gather_rows, world_size
+from protoasnet_tpu_torch.parallel.mesh import data_size, gather_rows
 
 __all__ = ["DeviceEpochBuffer"]
 
@@ -62,7 +62,7 @@ class DeviceEpochBuffer:
 
     def _global_rows(self, t: torch.Tensor) -> torch.Tensor:
         """Every rank's rows of ``t``, in the global batches' order."""
-        w = world_size()
+        w = data_size()
         if w == 1:
             return t
         rest = tuple(t.shape[1:])

@@ -26,7 +26,12 @@ The JAX package's ``train/optim.py`` in torch:
   across ranks under data parallelism, rank 0's alone on a load), so a
   checkpoint is the same file at any world size. FSDP2 keeps the partial
   sums of micro-steps that do not update to itself (unsharded, off
-  ``.grad``): save its accumulator on an update's boundary.
+  ``.grad``): save its accumulator on an update's boundary;
+* under prototype tensor parallelism (``parallel/mesh.py::
+  prototype_param_shardings``) a prototype shard's moments and partial
+  sums are its block: the ``state_dict``s gather them over ``model`` into
+  full tensors and ``load_state_dict`` keeps each rank's block, so a 2-D
+  run's state is the file of a one-process run.
 """
 
 from __future__ import annotations
@@ -36,7 +41,8 @@ from typing import Any, Dict, Iterable, List, Optional
 import torch
 from torch import nn
 
-from protoasnet_tpu_torch.parallel.mesh import all_reduce_sum, is_main
+from protoasnet_tpu_torch.parallel.mesh import (all_reduce_sum, data_rank,
+                                                gather_shard, local_shard)
 
 __all__ = ["GROUPS", "STAGE_GROUPS", "STAGES", "group_of", "label_params",
            "GroupAdam", "GradAccumulator", "StageOptimizers",
@@ -64,24 +70,29 @@ def group_of(name: str) -> str:
     return _TOP.get(name.split(".")[0], "backbone")
 
 
-def _full(t: Any) -> Any:
-    """A DTensor's full value (one all-gather); anything else as it is."""
-    return t.full_tensor() if hasattr(t, "full_tensor") else t
+def _full(t: Any, p: Optional[torch.Tensor] = None) -> Any:
+    """A DTensor's full value (one all-gather); the parameter ``p``'s
+    prototype block gathered over ``model``; anything else as it is."""
+    if hasattr(t, "full_tensor"):
+        return t.full_tensor()
+    return t if p is None or t.dim() == 0 else gather_shard(t, p)
 
 
-def _global(g: torch.Tensor) -> torch.Tensor:
+def _global(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     """A gradient of the global batch, full: a DTensor's (FSDP2 summed it)
-    gathered, a plain one summed across ranks (a new tensor)."""
+    gathered, a plain one summed over the ``data`` group (a new tensor)
+    and, for a prototype block, gathered over ``model``."""
     g = g.detach()
     return _full(g) if hasattr(g, "full_tensor") else \
-        all_reduce_sum(g).clone()
+        _full(all_reduce_sum(g).clone(), p)
 
 
 def _like(t: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     """A full tensor ``t`` laid out as the parameter ``p``: p's shard of it
-    when p is a DTensor (each rank cuts its own; every rank holds t)."""
+    when p is a DTensor (each rank cuts its own; every rank holds t) or a
+    prototype block."""
     if not hasattr(p, "device_mesh") or hasattr(t, "device_mesh"):
-        return t
+        return local_shard(t, p)
     from torch.distributed.tensor import distribute_tensor
 
     return distribute_tensor(t.to(p.device), p.device_mesh, p.placements,
@@ -143,7 +154,8 @@ class GroupAdam:
     def state_dict(self) -> Dict[str, Any]:
         """``torch.optim.Adam``'s, with full tensors."""
         st = self.optimizer.state_dict()
-        st["state"] = {i: {k: _full(v) for k, v in s.items()}
+        order = [p for g in self.optimizer.param_groups for p in g["params"]]
+        st["state"] = {i: {k: _full(v, order[i]) for k, v in s.items()}
                        for i, s in st["state"].items()}
         return st
 
@@ -183,16 +195,16 @@ class GradAccumulator:
         has no gradient yet), as full tensors of the global batch: under
         data parallelism summed across ranks, so every rank calls it."""
         return {"count": self.count,
-                "grads": [None if p.grad is None else _global(p.grad)
+                "grads": [None if p.grad is None else _global(p.grad, p)
                           for p in self.params]}
 
     def load_state_dict(self, state: Dict[str, Any]) -> None:
-        """Under data parallelism rank 0 takes the partial sums and the
-        other ranks start from none: the update's all-reduce adds them
-        once."""
+        """Under data parallelism data rank 0 takes the partial sums (each
+        model rank its blocks) and the other data ranks start from none:
+        the update's all-reduce adds them once."""
         self.count = int(state["count"])
         for p, g in zip(self.params, state["grads"]):
-            p.grad = None if g is None or not is_main() else _like(
+            p.grad = None if g is None or data_rank() != 0 else _like(
                 g.to(p.device, p.dtype).clone(), p)
 
 

@@ -27,6 +27,12 @@ reduce-scatter is switched off on the others), and the reported loss
 terms are the global batch's (``global_terms``). The logits and
 similarities returned are the rank's rows. The affine draw is one (angle,
 scale) per step from a generator every rank seeds alike.
+
+Under prototype tensor parallelism (the model's ``prototype_shard``) the
+steps are the same: the split head and the bundle make every model rank's
+loss the whole objective, the replicated parameters' gradients come out
+whole over ``model`` from the backward, and ``sync_grads`` sums every
+gradient, a prototype shard's too, over the ``data`` group only.
 """
 
 from __future__ import annotations
@@ -53,8 +59,12 @@ def _wide(t: torch.Tensor) -> torch.Tensor:
 
 
 def _class_identity(model: nn.Module, device) -> torch.Tensor:
-    p, k = model.prototype_vectors.shape[0], model.num_classes
-    return torch.from_numpy(prototype_class_identity(p, k)).to(device)
+    """The whole (P, K) class identity (over every model rank's
+    prototypes)."""
+    shard = getattr(model, "prototype_shard", None)
+    p = model.prototype_vectors.shape[0] if shard is None else shard.total
+    return torch.from_numpy(prototype_class_identity(
+        p, model.num_classes)).to(device)
 
 
 def _backward(model: nn.Module, total: torch.Tensor,
@@ -117,7 +127,7 @@ def make_xprotonet_steps(
             fc_kernel=model.last_layer.Dense_0.weight.T,
             class_identity=class_identity, valid=valid,
             occ_transformed=None if occ_t is None else _wide(occ_t),
-            affine_params=aff)
+            affine_params=aff, shard=model.prototype_shard)
 
     def train_step(cine, target, valid, lrs: Dict[str, float],
                    affine=None, generator: Optional[torch.Generator] = None
@@ -176,7 +186,8 @@ def make_protopnet_steps(
         return bundle.protopnet_terms(
             _wide(logits), min_d, target,
             fc_kernel=model.last_layer.Dense_0.weight.T,
-            class_identity=class_identity, valid=valid)
+            class_identity=class_identity, valid=valid,
+            shard=model.prototype_shard)
 
     def train_step(cine, target, valid, lrs: Dict[str, float]
                    ) -> Dict[str, Any]:

@@ -10,7 +10,6 @@ run's directory resumes from its ``last.ckpt``.
 """
 
 import json
-import os
 import subprocess
 import sys
 from pathlib import Path
@@ -21,18 +20,13 @@ import torch
 from protoasnet_tpu_torch.data.synthetic import make_synthetic_dataset
 from protoasnet_tpu_torch.main import main
 from protoasnet_tpu_torch.utils.io import load_checkpoint
+from torch_port_isolation import isolated, removed_after, subprocess_env
 
 REPO = Path(__file__).resolve().parents[1]
 CONFIG = REPO / "protoasnet_tpu" / "configs" / "ours_protoasnet_video.yml"
 
 
-@pytest.fixture(scope="module", autouse=True)
-def _restore_torch_threads():
-    """This module trains with two threads; give the process back the count
-    it had, since later test modules in the same process depend on it."""
-    threads = torch.get_num_threads()
-    yield
-    torch.set_num_threads(threads)
+_isolated = isolated(2)
 
 
 def _args(csv, save_dir, epochs=1):
@@ -52,15 +46,15 @@ def _args(csv, save_dir, epochs=1):
 def runs(tmp_path_factory):
     root = tmp_path_factory.mktemp("agent")
     csv = make_synthetic_dataset(str(root / "data"), num_videos=12, seed=3)
-    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="2")
+    env = subprocess_env(PYTHONPATH=str(REPO), OMP_NUM_THREADS="2")
     cli = subprocess.run(
         [sys.executable, "-m", "protoasnet_tpu_torch.main",
          *_args(csv, root / "a")], cwd=str(REPO), env=env,
         capture_output=True, text=True, timeout=600)
     assert cli.returncode == 0, cli.stderr[-4000:]
-    torch.set_num_threads(2)
     agent = main(_args(csv, root / "b"))
-    return dict(csv=csv, root=root, a=root / "a" / "ours_protoasnet_video",
+    with removed_after(root):
+        yield dict(csv=csv, root=root, a=root / "a" / "ours_protoasnet_video",
                 b=root / "b" / "ours_protoasnet_video", agent=agent)
 
 

@@ -27,8 +27,9 @@ from protoasnet_tpu_torch.data.intervals import compute_intervals
 from protoasnet_tpu_torch.data.manifest import Manifest
 from protoasnet_tpu_torch.data.native import native_available
 from protoasnet_tpu_torch.data.synthetic import make_synthetic_dataset
+from torch_port_isolation import isolated
 
-torch.set_num_threads(1)
+_isolated = isolated(1)
 
 
 @pytest.fixture(scope="module")

@@ -32,7 +32,7 @@ from protoasnet_tpu_torch.train.agents import build_agent
 from protoasnet_tpu_torch.train.device_metrics import DeviceEpochBuffer
 from protoasnet_tpu_torch.train.metrics import EpochMetrics
 from protoasnet_tpu_torch.utils.config import updated_config
-from tests.test_torch_port_agent import CONFIG
+from torch_port_isolation import isolated
 
 K, P, B, STEPS = 4, 8, 4, 3
 LOSSES = ("loss_all", "loss_ce", "loss_cluster")
@@ -40,12 +40,10 @@ SCALARS = ("accuracy", "f1_mean", "AUC", "sparsity", "diversity",
            "diversity_abstain")
 
 
-@pytest.fixture(scope="module", autouse=True)
-def _restore_torch_threads():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(threads)
+_isolated = isolated(2)
+CONFIG = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "protoasnet_tpu", "configs",
+    "ours_protoasnet_video.yml")
 
 
 def _steps(padded: bool):

@@ -47,8 +47,9 @@ from protoasnet_tpu_torch.models.builder import build_model
 from protoasnet_tpu_torch.models.from_jax import load_jax_variables
 from protoasnet_tpu_torch.train.agents.xprotonet import \
     _XProtoNetAgentCommon as PortCommon
+from torch_port_isolation import isolated, subprocess_env
 
-torch.set_num_threads(2)
+_isolated = isolated(2)
 
 REPO = Path(__file__).resolve().parents[1]
 P, D, K = 8, 64, 4
@@ -281,7 +282,7 @@ def trained(tmp_path_factory):
 
 
 def test_explain_cli_end_to_end(trained):
-    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="2")
+    env = subprocess_env(PYTHONPATH=str(REPO), OMP_NUM_THREADS="2")
     proc = subprocess.run(
         [sys.executable, "-m", "protoasnet_tpu_torch.explain",
          *trained["args"], "--explain_locally=true",

@@ -25,7 +25,6 @@ bundle, on the CPU (``--device cpu``).
 """
 
 import io
-import os
 import shutil
 import subprocess
 import sys
@@ -51,10 +50,11 @@ from protoasnet_tpu_torch.serve import (export_run, load_bundle_model,
                                         load_serving_bundle_with_spec,
                                         load_trained_agent, tune_bundle)
 from protoasnet_tpu_torch.serve import main as serve_main
-from tests.test_torch_port_checkpoint_jax import (_jax_logits, _jax_run,
-                                                  agent_config, sample_batch)
+from torch_port_isolation import isolated, subprocess_env
+from torch_port_jax_agents import (_jax_logits, _jax_run, agent_config,
+                                   sample_batch)
 
-torch.set_num_threads(2)
+_isolated = isolated(2)
 
 REPO = Path(__file__).resolve().parents[1]
 TRAIN = ("--data.img_size=32", "--data.frames=8", "--data.eval_batch_size=4",
@@ -161,7 +161,7 @@ def _post(url, arr):
 
 def test_export_cli_bundle_served_over_http(port_run, scratch):
     out = str(scratch / "cli.zip")
-    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="2")
+    env = subprocess_env(PYTHONPATH=str(REPO), OMP_NUM_THREADS="2")
     proc = subprocess.run(
         [sys.executable, "-m", "protoasnet_tpu_torch.serve", "export",
          "--run_dir", port_run, "--out", out, "--device", "cpu"],

@@ -17,6 +17,8 @@ jaxpr walk (``protoasnet_tpu/utils/flops.py``).
   not in the table raises.
 """
 
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -33,7 +35,8 @@ from protoasnet_tpu_torch.utils.config import load_config
 from protoasnet_tpu_torch.utils.flops import (PEAK_FLOPS, count_flops,
                                               flops_by_op, kernel_flops, mfu,
                                               peak_flops, summarize)
-from tests.test_torch_port_agent import REPO
+
+REPO = Path(__file__).resolve().parents[1]
 
 H100 = "NVIDIA H100 80GB HBM3"
 FLAGSHIP_PORT = 156_158_751_040

@@ -30,8 +30,9 @@ from protoasnet_tpu_torch.experiments.fused_c2p1d import SMALL, flops
 from protoasnet_tpu_torch.ops.fused_c2p1d import (fold_conv2plus1d,
                                                   fused_c2p1d_torch)
 from protoasnet_tpu_torch.ops.fused_c2p1d_cuda import fused_c2p1d_cuda
+from torch_port_isolation import isolated
 
-torch.set_num_threads(1)
+_isolated = isolated(1)
 
 REPO = Path(__file__).resolve().parents[1]
 

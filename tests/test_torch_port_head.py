@@ -17,8 +17,9 @@ from protoasnet_tpu.ops.pallas_roi import roi_cosine_pallas
 from protoasnet_tpu.ops.roi_cosine import roi_cosine_head as jax_head
 from protoasnet_tpu_torch.ops import roi_cosine as port
 from protoasnet_tpu_torch.ops.roi_cosine_cuda import roi_cosine_cuda
+from torch_port_isolation import isolated
 
-torch.set_num_threads(1)
+_isolated = isolated(1)
 
 # (n, t, h, w, d, p): a tiny odd shape, the port tests' model head
 # (8 frames at 32x32 -> 2x4x4, D=64, P=8) and a ragged one (S, P, D not

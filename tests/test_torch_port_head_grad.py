@@ -25,8 +25,9 @@ from protoasnet_tpu.ops.roi_cosine import roi_cosine_head as jax_head
 from protoasnet_tpu_torch.ops import roi_cosine_cuda as roi_mod
 from protoasnet_tpu_torch.ops.roi_cosine import (roi_cosine_backward,
                                                  roi_cosine_torch)
+from torch_port_isolation import isolated
 
-torch.set_num_threads(1)
+_isolated = isolated(1)
 
 N, S, P, D = 3, 96, 8, 32
 

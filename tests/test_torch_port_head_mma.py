@@ -28,8 +28,9 @@ from protoasnet_tpu_torch.ops import l2_min_cuda as l2_mod
 from protoasnet_tpu_torch.ops import roi_cosine_cuda as roi_mod
 from protoasnet_tpu_torch.ops.fused_c2p1d_cuda import H100_SMEM, H100_SMS
 from protoasnet_tpu_torch.ops.temporal_conv import split_tf32
+from torch_port_isolation import isolated
 
-torch.set_num_threads(1)
+_isolated = isolated(1)
 
 LIMIT = 1e-5  # chip_smoke.py phase 2: roi rel. to max |roi|, sim absolute
 H100_SM_SMEM = 233472  # shared memory of one SM (228 KB)

@@ -28,8 +28,9 @@ from protoasnet_tpu_torch.models.builder import build_model, example_input
 from protoasnet_tpu_torch.models.from_jax import load_jax_variables
 from protoasnet_tpu_torch.models.layers import (BottleneckAddOn,
                                                 bottleneck_channel_plan)
+from torch_port_isolation import isolated
 
-torch.set_num_threads(1)
+_isolated = isolated(1)
 
 RTOL, ATOL = 1e-3, 1e-4
 IMG = 64

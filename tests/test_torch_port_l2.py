@@ -20,8 +20,9 @@ from protoasnet_tpu.ops.pallas_l2 import l2_min_pallas
 from protoasnet_tpu_torch.ops.l2_min import l2_min_head, l2_min_torch
 from protoasnet_tpu_torch.ops.l2_min_cuda import l2_min_cuda
 from protoasnet_tpu_torch.ops.l2conv import l2_patch_distances
+from torch_port_isolation import isolated
 
-torch.set_num_threads(1)
+_isolated = isolated(1)
 
 RTOL = ATOL = 1e-4
 # (n, h, w, d, p): ProtoPNet's head at batch 2, odd sizes (S, P, D off

@@ -36,8 +36,9 @@ from protoasnet_tpu.ops.l2conv import l2_patch_distances as jax_l2
 from protoasnet_tpu.ops.pallas_l2 import l2_min_pallas
 from protoasnet_tpu_torch.ops import l2_min_cuda as l2_mod
 from protoasnet_tpu_torch.ops.l2_min import l2_min_backward, l2_min_torch
+from torch_port_isolation import isolated
 
-torch.set_num_threads(1)
+_isolated = isolated(1)
 
 # a reduced ProtoPNet head: N=3 samples of 5x5 positions, P=7, D=40
 N, H, W, P, D = 3, 5, 5, 7, 40

@@ -19,8 +19,9 @@ from protoasnet_tpu.ops import affine_fast as JA
 from protoasnet_tpu_torch.losses import losses as TL
 from protoasnet_tpu_torch.losses.bundle import LossBundle
 from protoasnet_tpu_torch.ops import affine_fast as TA
+from torch_port_isolation import isolated
 
-torch.set_num_threads(1)
+_isolated = isolated(1)
 
 N, P, K = 5, 8, 4
 

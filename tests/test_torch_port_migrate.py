@@ -37,8 +37,9 @@ from protoasnet_tpu_torch.models.from_jax import (load_jax_variables,
 from protoasnet_tpu_torch.models.migrate import (
     convert_reference_state_dict, export_reference_state_dict, main)
 from tests.test_migrate import D, K, P, RefPPNet, RefVideoXProtoNet
+from torch_port_isolation import isolated, scratch_path  # noqa: F401
 
-torch.set_num_threads(1)
+_isolated = isolated(1)
 
 VIDEO = {"name": "Video_XProtoNet", "base_architecture": "resnet2p1d_18",
          "backbone_last_layer_num": -3, "prototype_shape": (P, D, 1, 1, 1),
@@ -167,19 +168,19 @@ def _agent_config(csv, tmp_path):
     }
 
 
-def test_cli_both_ways_through_both_agents(synthetic_csv, tmp_path):
+def test_cli_both_ways_through_both_agents(synthetic_csv, scratch_path):
     from protoasnet_tpu.train.agents import build_agent as jax_agent
     from protoasnet_tpu_torch.train.agents import build_agent
 
     ref = _twin(RefVideoXProtoNet)
-    pth = str(tmp_path / "ref_last.pth")
+    pth = str(scratch_path / "ref_last.pth")
     torch.save({"epoch": 7, "iteration": 123, "state_dict": ref.state_dict(),
                 "optimizer": None}, pth)
-    cfg = _agent_config(synthetic_csv, tmp_path)
-    cfg_path = str(tmp_path / "cfg.yml")
+    cfg = _agent_config(synthetic_csv, scratch_path)
+    cfg_path = str(scratch_path / "cfg.yml")
     with open(cfg_path, "w") as f:
         yaml.safe_dump(cfg, f)
-    pkl = str(tmp_path / "migrated.pkl")
+    pkl = str(scratch_path / "migrated.pkl")
     main([pth, pkl, f"--config_path={cfg_path}"])
 
     x = np.random.default_rng(10).normal(
@@ -190,7 +191,7 @@ def test_cli_both_ways_through_both_agents(synthetic_csv, tmp_path):
     assert (port.current_epoch, port.current_iteration) == (7, 123)
     np.testing.assert_allclose(_port_logits(port.model, x), want,
                                rtol=1e-5, atol=1e-6)
-    jax_cfg = dict(cfg, save_dir=str(tmp_path / "jax_logs"))
+    jax_cfg = dict(cfg, save_dir=str(scratch_path / "jax_logs"))
     jax_cfg.pop("device")
     agent = jax_agent(jax_cfg)
     assert agent.current_epoch == 7
@@ -201,7 +202,7 @@ def test_cli_both_ways_through_both_agents(synthetic_csv, tmp_path):
                                atol=1e-4)
     # the JAX agent's flax checkpoint back to the reference's .pth
     agent.save_checkpoint()
-    from_jax = str(tmp_path / "from_jax.pth")
+    from_jax = str(scratch_path / "from_jax.pth")
     main([f"{agent.save_dir}/last.ckpt", from_jax,
           f"--config_path={cfg_path}", "--to_reference"])
     blob = torch.load(from_jax, map_location="cpu", weights_only=True)
@@ -212,7 +213,7 @@ def test_cli_both_ways_through_both_agents(synthetic_csv, tmp_path):
 
     # the port's own checkpoint back to the reference's .pth
     port.save_checkpoint()
-    out = str(tmp_path / "back.pth")
+    out = str(scratch_path / "back.pth")
     main([f"{port.save_dir}/last.ckpt", out, f"--config_path={cfg_path}",
           "--to_reference"])
     blob = torch.load(out, map_location="cpu", weights_only=True)

@@ -26,8 +26,9 @@ from protoasnet_tpu_torch.models.layers import (incorrect_connection_kernel,
                                                 prototype_class_identity)
 from protoasnet_tpu_torch.utils.config import (apply_overrides, load_config,
                                                parse_prototype_shape)
+from torch_port_isolation import isolated
 
-torch.set_num_threads(1)
+_isolated = isolated(1)
 
 P, D, K = 8, 64, 4
 CFG = {"name": "Video_XProtoNet", "base_architecture": "resnet2p1d_18",

@@ -61,8 +61,9 @@ from protoasnet_tpu.train.steps import TrainState, make_xprotonet_steps
 from protoasnet_tpu_torch.models.builder import build_model
 from protoasnet_tpu_torch.models.from_jax import load_jax_variables
 from protoasnet_tpu_torch.parallel import mesh
+from torch_port_isolation import isolated, removed_after
 
-torch.set_num_threads(1)
+_isolated = isolated(1)
 
 WORLD = 2
 JOIN_S = 600  # a rank that hangs fails the test, far inside the run's limit
@@ -148,7 +149,8 @@ def runs(tmp_path_factory):
     drv.explain(csv, str(tmp / "explain_w1"))
     ranks = [torch.load(tmp / f"rank{r}.pt", weights_only=False)
              for r in range(WORLD)]
-    return {"ref": ref, "ranks": ranks, "tmp": tmp}
+    with removed_after(tmp):
+        yield {"ref": ref, "ranks": ranks, "tmp": tmp}
 
 
 # ---------------- bring-up ----------------

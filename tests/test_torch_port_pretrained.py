@@ -26,8 +26,9 @@ from protoasnet_tpu_torch.models.builder import build_model
 from protoasnet_tpu_torch.models.from_jax import load_jax_variables
 from protoasnet_tpu_torch.models.pretrained import load_pretrained_backbone
 from tests.test_torch_import import TVR3D, TVVGG, TVDenseLayer
+from torch_port_isolation import isolated
 
-torch.set_num_threads(1)
+_isolated = isolated(1)
 
 CFGS = {
     "resnet2p1d_18": ({"name": "Video_XProtoNet",

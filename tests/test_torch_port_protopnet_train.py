@@ -43,8 +43,9 @@ from protoasnet_tpu_torch.models.from_jax import (jax_to_state_dict,
 from protoasnet_tpu_torch.train.optim import (STAGE_GROUPS, GradAccumulator,
                                               GroupAdam, group_of)
 from protoasnet_tpu_torch.train.steps import make_protopnet_steps
+from torch_port_isolation import isolated
 
-torch.set_num_threads(1)
+_isolated = isolated(1)
 
 P, D, K = 6, 32, 3
 CFG = {"name": "ProtoPNet", "base_architecture": "resnet18",

@@ -27,8 +27,9 @@ from protoasnet_tpu_torch.models.from_jax import load_jax_variables
 from protoasnet_tpu_torch.models.layers import prototype_class_identity
 from protoasnet_tpu_torch.serve import (load_serving_bundle,
                                         save_serving_bundle)
+from torch_port_isolation import isolated
 
-torch.set_num_threads(1)
+_isolated = isolated(1)
 
 CFG = {"name": "Video_XProtoNet", "base_architecture": "resnet2p1d_18",
        "backbone_last_layer_num": -3, "prototype_shape": (8, 32, 1, 1, 1),

@@ -28,8 +28,9 @@ from protoasnet_tpu_torch.models.builder import build_model
 from protoasnet_tpu_torch.models.from_jax import load_jax_variables
 from protoasnet_tpu_torch.models.layers import prototype_class_identity
 from protoasnet_tpu_torch.push.push import batch_winners, push_prototypes
+from torch_port_isolation import isolated
 
-torch.set_num_threads(1)
+_isolated = isolated(1)
 
 P, D, K = 8, 64, 4
 CFG = {"name": "Video_XProtoNet", "base_architecture": "resnet2p1d_18",

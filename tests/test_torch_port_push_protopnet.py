@@ -38,8 +38,9 @@ from protoasnet_tpu_torch.models.layers import prototype_class_identity
 from protoasnet_tpu_torch.push import receptive_field as rf
 from protoasnet_tpu_torch.push.push_protopnet import (
     find_high_activation_crop, push_prototypes_patch)
+from torch_port_isolation import isolated
 
-torch.set_num_threads(1)
+_isolated = isolated(1)
 
 P, D, K, IMG = 6, 32, 3, 64
 CFG = {"name": "ProtoPNet", "base_architecture": "resnet18",

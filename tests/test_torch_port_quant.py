@@ -46,8 +46,9 @@ from protoasnet_tpu_torch.quant import (apply_quantized, build_qstate,
                                         calibrate_act_scales,
                                         qstate_from_arrays, qstate_to_arrays,
                                         quantized_model)
+from torch_port_isolation import isolated
 
-torch.set_num_threads(1)
+_isolated = isolated(1)
 
 # (C, O, kernel, stride, padding, spatial): every int8 conv geometry of
 # the trunks, channel counts off multiples of 8 among them

@@ -48,8 +48,9 @@ from protoasnet_tpu_torch.train.optim import (GROUPS, GradAccumulator,
 from protoasnet_tpu_torch.train.steps import make_xprotonet_steps
 from tests.test_torch_port_train import (CFG, CRITERION, LR, TOL_GRAD, WD,
                                          _f64, _np_tree, _random_stats)
+from torch_port_isolation import isolated
 
-torch.set_num_threads(1)
+_isolated = isolated(1)
 
 K = CFG["num_classes"]
 TOL_SAME = 1e-12

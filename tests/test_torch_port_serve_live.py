@@ -19,7 +19,6 @@ served live, against the JAX package.
   input shape ends in ``error``.
 """
 
-import os
 import shutil
 import signal
 import subprocess
@@ -43,8 +42,11 @@ from protoasnet_tpu_torch.quant import (apply_quantized,
                                         calibrate_qstate_from_agent)
 from protoasnet_tpu_torch.serve import load_trained_agent
 from protoasnet_tpu_torch.serve import main as serve_main
-from tests.test_torch_port_checkpoint_jax import (_jax_logits, _mark_trained,
-                                                  agent_config, sample_batch)
+from torch_port_isolation import isolated, subprocess_env
+from torch_port_jax_agents import (_jax_logits, _mark_trained,
+                                   agent_config, sample_batch)
+
+_isolated = isolated(2)
 
 REPO = Path(__file__).resolve().parents[1]
 VIDEO, PPNET = "Video_XProtoNet_e2e", "ProtoPNet_e2e"
@@ -261,7 +263,7 @@ def test_live_reload_between_two_jax_runs(runs, root):
 
 def test_run_dir_cli_drains_on_sigterm(runs):
     run, jax_agent = runs["ppnet"]
-    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
+    env = subprocess_env(PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
     proc = subprocess.Popen(
         [sys.executable, "-m", "protoasnet_tpu_torch.server", "--run_dir",
          run, "--device", "cpu", "--host", "127.0.0.1", "--port", "0",

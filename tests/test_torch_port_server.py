@@ -7,7 +7,6 @@ called with ``device="cpu"`` / ``--device cpu``.
 
 import io
 import json
-import os
 import signal
 import subprocess
 import sys
@@ -26,8 +25,9 @@ from protoasnet_tpu_torch.models.builder import build_model
 from protoasnet_tpu_torch.serve import (load_serving_bundle,
                                         load_serving_bundle_with_spec,
                                         save_serving_bundle)
+from torch_port_isolation import isolated, subprocess_env
 
-torch.set_num_threads(1)
+_isolated = isolated(1)
 
 REPO = Path(__file__).resolve().parents[1]
 CFG = {"name": "Video_XProtoNet", "base_architecture": "resnet2p1d_18",
@@ -214,7 +214,7 @@ def test_batcher_pads_to_bucket_and_maps_rows_back():
 
 def test_cli_sigterm_drains_and_exits_zero(bundle):
     path, _ = bundle
-    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
+    env = subprocess_env(PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
     proc = subprocess.Popen(
         [sys.executable, "-m", "protoasnet_tpu_torch.server", "--bundle",
          path, "--device", "cpu", "--host", "127.0.0.1", "--port", "0",

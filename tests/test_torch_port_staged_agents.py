@@ -39,6 +39,8 @@ from protoasnet_tpu_torch.train.optim import (GroupAdam, StageOptimizers,
                                               group_of)
 from protoasnet_tpu_torch.utils.config import updated_config
 from protoasnet_tpu_torch.utils.io import load_checkpoint
+from torch_port_isolation import (isolated, removed_after,  # noqa: F401
+                                  scratch_path, subprocess_env)
 
 REPO = Path(__file__).resolve().parents[1]
 CONFIGS = REPO / "protoasnet_tpu" / "configs"
@@ -46,13 +48,7 @@ AGENT_NAMES = ("Video_XProtoNet_e2e", "XProtoNet_e2e", "XProtoNet_Base",
                "ProtoPNet_Base", "ProtoPNet_e2e")
 
 
-@pytest.fixture(scope="module", autouse=True)
-def _restore_torch_threads():
-    """This module trains with two threads; give the process back the count
-    it had, since later test modules in the same process depend on it."""
-    threads = torch.get_num_threads()
-    yield
-    torch.set_num_threads(threads)
+_isolated = isolated(2)
 
 
 def _args(config, csv, save_dir, *extra, epochs=2):
@@ -89,15 +85,15 @@ def ppnet_runs(csv, tmp_path_factory):
     """The staged ProtoPNet: once through the command line, once in this
     process with the same seed."""
     root = tmp_path_factory.mktemp("ppnet")
-    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="2")
+    env = subprocess_env(PYTHONPATH=str(REPO), OMP_NUM_THREADS="2")
     cli = subprocess.run(
         [sys.executable, "-m", "protoasnet_tpu_torch.main",
          *_args(PPNET[0], csv, root / "a", *PPNET[1:])], cwd=str(REPO),
         env=env, capture_output=True, text=True, timeout=600)
     assert cli.returncode == 0, cli.stderr[-4000:]
-    torch.set_num_threads(2)
     agent = main(_args(PPNET[0], csv, root / "b", *PPNET[1:]))
-    return dict(root=root, a=root / "a" / "baseline_protopnet",
+    with removed_after(root):
+        yield dict(root=root, a=root / "a" / "baseline_protopnet",
                 b=root / "b" / "baseline_protopnet", agent=agent)
 
 
@@ -163,7 +159,6 @@ def _moved(agent, init):
 def test_each_stage_moves_only_its_groups(agent_cfg, csv, tmp_path):
     """One warm epoch moves the add-on and prototypes and not the trunk or
     the readout; a last-layer epoch moves only the readout."""
-    torch.set_num_threads(2)
     config = updated_config(_args(agent_cfg[0], csv, tmp_path,
                                   *agent_cfg[1:]))
     config["save_dir"] = str(tmp_path)
@@ -180,9 +175,8 @@ def test_each_stage_moves_only_its_groups(agent_cfg, csv, tmp_path):
     assert _moved(agent, init) == {"last_layer"}
 
 
-def test_protopnet_e2e_trains(csv, tmp_path):
-    torch.set_num_threads(2)
-    agent = main(_args("baseline_protopnet_e2e.yml", csv, tmp_path,
+def test_protopnet_e2e_trains(csv, scratch_path):
+    agent = main(_args("baseline_protopnet_e2e.yml", csv, scratch_path,
                        "--model.prototype_shape=(6, 32, 1, 1)"))
     run = Path(agent.save_dir)
     assert (run / "img" / "epoch-1_pushed" / "bb.npy").exists()
@@ -191,9 +185,8 @@ def test_protopnet_e2e_trains(csv, tmp_path):
             ckpt["optimizer"]["state"].values()} == {2.0}
 
 
-def test_xprotonet_staged_trains(csv, tmp_path):
-    torch.set_num_threads(2)
-    agent = main(_args(XBASE[0], csv, tmp_path, *XBASE[1:]))
+def test_xprotonet_staged_trains(csv, scratch_path):
+    agent = main(_args(XBASE[0], csv, scratch_path, *XBASE[1:]))
     run = Path(agent.save_dir)
     assert (run / "img" / "epoch-1_pushed" / "prototypes_info.pickle"
             ).exists()
@@ -206,11 +199,10 @@ def test_xprotonet_staged_trains(csv, tmp_path):
     assert {"scheduler_joint", "scheduler_last"} <= set(ckpt)
 
 
-def test_image_protoasnet_trains_one_epoch(csv, tmp_path):
+def test_image_protoasnet_trains_one_epoch(csv, scratch_path):
     """``ours_protoasnet_image.yml`` as shipped (``XProtoNet_e2e``,
     frames=1, bf16) through the rank-4 path, with a push."""
-    torch.set_num_threads(2)
-    agent = main(_args("ours_protoasnet_image.yml", csv, tmp_path,
+    agent = main(_args("ours_protoasnet_image.yml", csv, scratch_path,
                        "--model.prototype_shape=(8, 32, 1, 1)",
                        "--train.num_warm_epochs=0", "--train.push_start=0",
                        epochs=1))

@@ -31,8 +31,9 @@ from protoasnet_tpu_torch.experiments.fused_c2p1d import BLOCKS
 from protoasnet_tpu_torch.experiments.temporal_conv import flops
 from protoasnet_tpu_torch.ops.temporal_conv import temporal_conv_torch
 from protoasnet_tpu_torch.ops.temporal_conv_cuda import temporal_conv_cuda
+from torch_port_isolation import isolated
 
-torch.set_num_threads(1)
+_isolated = isolated(1)
 
 REPO = Path(__file__).resolve().parents[1]
 RTOL, ATOL = 1e-5, 1e-6

@@ -27,8 +27,11 @@ from protoasnet_tpu_torch.data.synthetic import make_synthetic_dataset
 from protoasnet_tpu_torch.serve import load_serving_bundle
 from protoasnet_tpu_torch.serve import main as serve_main
 from protoasnet_tpu_torch.tracking.trackers import make_tracker
-from tests.test_torch_port_checkpoint_jax import (_jax_logits, _mark_trained,
-                                                  agent_config, sample_batch)
+from torch_port_isolation import isolated
+from torch_port_jax_agents import (_jax_logits, _mark_trained,
+                                   agent_config, sample_batch)
+
+_isolated = isolated(2)
 
 FACTORIES = {"jax": jax_make_tracker, "port": make_tracker}
 ROW = {"batch_train/step": 3, "batch_train/loss_all": np.float32(0.25),

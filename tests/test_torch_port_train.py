@@ -53,8 +53,9 @@ from protoasnet_tpu_torch.train.optim import (GROUPS, GradAccumulator,
                                               GroupAdam, ReduceLROnPlateau,
                                               StepLR, group_of)
 from protoasnet_tpu_torch.train.steps import make_xprotonet_steps
+from torch_port_isolation import isolated
 
-torch.set_num_threads(1)
+_isolated = isolated(1)
 
 P, D, K = 8, 64, 4
 CFG = {"name": "Video_XProtoNet", "base_architecture": "resnet2p1d_18",

@@ -52,8 +52,9 @@ from protoasnet_tpu_torch.train.optim import (GROUPS, STAGE_GROUPS,
                                               group_of)
 from protoasnet_tpu_torch.train.steps import (make_protopnet_steps,
                                               make_xprotonet_steps)
+from torch_port_isolation import isolated
 
-torch.set_num_threads(1)
+_isolated = isolated(1)
 
 RTOL, ATOL = 1e-3, 1e-4
 FORWARD = ("r3d_18", "vgg11", "vgg11_bn", "densenet121")
