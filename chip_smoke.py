@@ -6,8 +6,10 @@ paths of the video flagship, the ProtoPNet baseline and the image
 ProtoASNet, the trained runs explained, exported, served live, reloaded
 and tuned, the training loop's instrumentation, ``model.remat``, the
 reference's ``.pth`` both ways, the flagship served as w8a8 int8, and the
-last trunks (r3d_18, VGG, DenseNet), and data parallelism through
-``torch.distributed.run``.
+last trunks (r3d_18, VGG, DenseNet), data parallelism through
+``torch.distributed.run``, prototype tensor parallelism, and the repo's
+measuring tools (the headline bench, serving latency, daemon load, int8
+accuracy).
 
     python3 chip_smoke.py
 
@@ -202,7 +204,24 @@ raises and the script exits non-zero without printing a result):
    its winners and similarities those of one process; (e) ProtoPNet on a
    1 x 2 mesh at batch 20: ``l2_min_cuda`` at P=15, the step's loss
    within 2e-5 of one process. The workers are ``chip_smoke.py
-   tp_gloo|tp_ref|tp_pair`` under the launcher.
+   tp_gloo|tp_ref|tp_pair`` under the launcher;
+23. the repo's measuring tools, each in process with ``roi_cosine_cuda``'s
+   count set to 0 just before it and read just after: (a) ``python -m
+   protoasnet_tpu_torch.bench --quick``, every key the root bench.py
+   prints for those flags present, finite and positive, the kernel
+   launched in each section (served, int8, train, image), ``value``
+   within 0.8-1.25x of phase 5's forward rate at 128; (b)
+   ``experiments.serving_latency --batches 1 8 128``, bf16 and int8, the
+   rates at 128 within the same band of (a)'s; (c) ``experiments.
+   daemon_load --null`` for 3 s, then the flagship through the daemon for
+   10 s under 4 clients (``--req_batch 4 --max_batch 16``): no request
+   fails, the kernel launched; (d) ``experiments.int8_accuracy`` on phase
+   7's run (finite metrics, int8 logits within 0.08 relative of float),
+   then on phase 7's weights and config with a val split of 36 synthetic
+   videos, 12 of each class: AUROC defined for both models. Before them,
+   ``roi_cosine_cuda`` at the batches the tools launch it at (N=1-64 at
+   the flagship's S, P, D, fp32 and bf16) within phase 2's limits, and
+   its backward at the bench's train batch of 8.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or of the JAX
@@ -214,6 +233,7 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import math
 import re
 import subprocess
 import sys
@@ -232,7 +252,8 @@ import torch
 # them); fp32 references run with TF32 off
 from protoasnet_tpu_torch.experiments.common import BATCH, TOL
 from protoasnet_tpu_torch.experiments.common import bound_ms as _bound
-from protoasnet_tpu_torch.experiments.common import max_rel_err, no_tf32
+from protoasnet_tpu_torch.experiments.common import (card_line, max_rel_err,
+                                                     no_tf32)
 
 REPO = Path(__file__).resolve().parent
 CONFIGS = REPO / "protoasnet_tpu" / "configs"
@@ -280,14 +301,6 @@ def kernel_device_ms(fn, name: str, iters: int = 50) -> float:
     from protoasnet_tpu_torch.utils.profiling import device_window
 
     return device_window(fn, iters=iters).device_ms(name)
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
 
 
 def head_bound_ms(n, s, p, d, dtype):
@@ -3269,18 +3282,16 @@ WORKERS.update(tp_gloo=worker_tp_gloo, tp_pair=worker_tp_pair,
                tp_ref=worker_tp_ref)
 
 
-def _tp_kernels(dev):
-    """(a): the head kernels at the sharded shapes against their float64
-    plain versions, timed (CUDA events) beside the plain version, the
-    library call and the bound; returns {kernel: [records]}."""
-    from protoasnet_tpu_torch.ops.l2_min import l2_min_torch
-    from protoasnet_tpu_torch.ops.l2_min_cuda import l2_min_cuda
+def _roi_records(dev, shapes, g, tag: str):
+    """``roi_cosine_cuda`` at each of ``shapes``, fp32 and bf16, against
+    its float64 plain version within phase 2's limits, timed (CUDA events)
+    beside the plain version, the library call and the bound; returns
+    the records."""
     from protoasnet_tpu_torch.ops.roi_cosine import roi_cosine_torch
     from protoasnet_tpu_torch.ops.roi_cosine_cuda import roi_cosine_cuda
 
-    out = {"roi_cosine_cuda": [], "l2_min_cuda": []}
-    g = torch.Generator(device=dev).manual_seed(22)
-    for shape in TP_HEADS:
+    out = []
+    for shape in shapes:
         n, s, p, d = shape["n"], shape["s"], shape["p"], shape["d"]
         occ32 = torch.rand((n, s, p), device=dev, generator=g) * 0.05
         feat32 = torch.randn((n, s, d), device=dev, generator=g)
@@ -3297,14 +3308,27 @@ def _tp_kernels(dev):
             rec = dict(shape, dtype=str(dtype)[6:], max_abs_err=max(
                 err_roi, err_sim), ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=bmm_ms)
-            out["roi_cosine_cuda"].append(rec)
-            log(f"[22 tp head] roi_cosine_cuda {rec['dtype']} N={n} S={s} "
+            out.append(rec)
+            log(f"[{tag}] roi_cosine_cuda {rec['dtype']} N={n} S={s} "
                 f"P={p} D={d} (staging "
                 f"{'aligned' if (p * occ.element_size()) % 16 == 0 else 'unaligned'}"
                 f"): roi max abs err {err_roi:.3e} (rel {rel_roi:.3e}), sim "
                 f"{err_sim:.3e} (limits of phase 2); wrapper call {ms:.4f} "
                 f"ms, plain {plain_ms:.4f} ms, bmm of roi alone "
                 f"{bmm_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+    return out
+
+
+def _tp_kernels(dev):
+    """(a): the head kernels at the sharded shapes against their float64
+    plain versions, timed (CUDA events) beside the plain version, the
+    library call and the bound; returns {kernel: [records]}."""
+    from protoasnet_tpu_torch.ops.l2_min import l2_min_torch
+    from protoasnet_tpu_torch.ops.l2_min_cuda import l2_min_cuda
+
+    g = torch.Generator(device=dev).manual_seed(22)
+    out = {"roi_cosine_cuda": _roi_records(dev, TP_HEADS, g, "22 tp head"),
+           "l2_min_cuda": []}
     n, s, p, d = TP_L2["n"], TP_L2["s"], TP_L2["p"], TP_L2["d"]
     x = torch.sigmoid(torch.randn((n, s, d), device=dev, generator=g))
     w = torch.rand((p, 1, 1, d), device=dev, generator=g)
@@ -3462,6 +3486,208 @@ def phase_tensor_parallel(dev, cfg, work: Path, train_rate: float):
     return launches, records
 
 
+# phase 23: the measuring tools
+TOOLS_BAND = (0.8, 1.25)  # a tool's flagship rate over another's, same call
+BENCH_ARGS = ["--quick"]
+BENCH_SECTIONS = ("a served", "b int8", "c train", "d image")
+LATENCY_BATCHES = ["1", "8", "128"]
+NULL_ARGS = ["--null", "--seconds", "3"]
+DAEMON_ARGS = ["--seconds", "10", "--clients", "4", "--req_batch", "4",
+               "--max_batch", "16"]
+# the head at the batches the tools launch it at beyond phase 2's 128: the
+# daemon's buckets (1-16), the latency curve (1-128), the bench's train
+# batch (8), int8_accuracy's calibration on phase 7's train loader (5);
+# its backward at the bench's train batch
+TOOL_HEADS = [dict(HEAD, n=n) for n in (1, 2, 4, 5, 8, 16, 32, 64)]
+TOOL_TRAIN_HEAD = dict(HEAD, n=8)
+# (d): phase 7's weights on a val split that holds every class, so that
+# AUROC is defined: 3 of every 5 videos in val, labels cycling over 3
+ACC_VIDEOS = 60
+ACC_SPLITS = ("train", "val", "val", "val", "test")
+
+
+def phase_tool_kernels(dev):
+    """23, before the tools: ``roi_cosine_cuda`` at ``TOOL_HEADS`` and its
+    backward at ``TOOL_TRAIN_HEAD``, each against its plain version within
+    phase 2's and phase 7's limits. Returns the records."""
+    t0 = time.monotonic()
+    g = torch.Generator(device=dev).manual_seed(23)
+    out = {"forward": _roi_records(dev, TOOL_HEADS, g, "23 tool head"),
+           "backward": dict(TOOL_TRAIN_HEAD, dtype="bfloat16",
+                            **phase_head_grad(dev, TOOL_TRAIN_HEAD,
+                                              "23 tool head grad"))}
+    log(f"[23 tool head] {len(TOOL_HEADS)} shapes x 2 dtypes and the "
+        f"backward in {time.monotonic() - t0:.1f}s")
+    return out
+
+
+def _all_class_run(run: Path, work: Path) -> Path:
+    """A run directory with ``run``'s config and ``last.ckpt`` whose
+    manifest is ``ACC_VIDEOS`` new synthetic videos split by
+    ``ACC_SPLITS``."""
+    import shutil
+
+    import yaml
+
+    from protoasnet_tpu_torch.data.synthetic import make_synthetic_dataset
+
+    csv = make_synthetic_dataset(str(work / "acc_data"),
+                                 num_videos=ACC_VIDEOS, seed=23,
+                                 splits=ACC_SPLITS)
+    out = work / "acc_run"
+    out.mkdir()
+    config = yaml.safe_load((run / "config_train.yml").read_text())
+    config["data"]["data_info_file"] = csv
+    (out / "config_train.yml").write_text(yaml.safe_dump(config))
+    shutil.copy(run / "last.ckpt", out / "last.ckpt")
+    return out
+
+
+def _tool(tag: str, fn, argv):
+    """``fn(argv)`` (a tool's ``main``) with ``roi_cosine_cuda``'s count
+    set to 0 just before and read just after; its stdout logged with the
+    phase's tag (the smoke's last two stdout lines stay its own). Returns
+    (the tool's result, the launches)."""
+    from protoasnet_tpu_torch.ops.roi_cosine_cuda import roi_cosine_cuda
+
+    out = io.StringIO()
+    roi_cosine_cuda.launches = 0
+    with contextlib.redirect_stdout(out):
+        res = fn(argv)
+    launches = roi_cosine_cuda.launches
+    for line in out.getvalue().strip().splitlines():
+        log(f"[{tag}] {line}")
+    return res, launches
+
+
+def _in_band(tag: str, what: str, rate: float, ref: float) -> float:
+    lo, hi = TOOLS_BAND
+    ratio = rate / ref
+    if not lo <= ratio <= hi:
+        raise AssertionError(f"{tag}: {what} {rate:.2f} is {ratio:.3f}x "
+                             f"{ref:.2f}, outside {TOOLS_BAND}")
+    return ratio
+
+
+def phase_tools(dev, train, work: Path, forward_128: float) -> int:
+    """23: the repo's measuring tools on the card, each in process, with
+    ``roi_cosine_cuda``'s count set to 0 just before and read just after.
+    (a) ``python -m protoasnet_tpu_torch.bench --quick``: every key the
+    root bench.py prints for ``--quick`` present, finite and positive, the
+    kernel launched in each section, ``value`` within ``TOOLS_BAND`` of
+    phase 5's forward rate at 128; (b) ``experiments.serving_latency`` at
+    ``LATENCY_BATCHES``, bf16 and int8: the rates at 128 within the band
+    of (a)'s bf16 and int8 forward rates; (c) ``experiments.daemon_load
+    --null`` for 3 s (the daemon's own cost), then the flagship through
+    the daemon for 10 s under 4 clients (``DAEMON_ARGS``): no request
+    fails (``run_load`` raises), the kernel launched; (d)
+    ``experiments.int8_accuracy`` on phase 7's run (2 val clips of one
+    class: finite metrics, the int8 logits within 0.08 relative of the
+    float ones), then on ``_all_class_run`` of it: the same, every val
+    video's clips counted and AUROC defined for both models. Returns the
+    launches of (a)-(d)."""
+    from protoasnet_tpu_torch import bench
+    from protoasnet_tpu_torch.experiments import (daemon_load,
+                                                  int8_accuracy,
+                                                  serving_latency)
+
+    t_phase = time.monotonic()
+    on = ["--device", dev.type]
+    top = int(LATENCY_BATCHES[-1])  # the bench's batch, 128
+    total = 0
+    t0 = time.monotonic()
+    line, a = _tool("23 bench", bench.main, BENCH_ARGS + on)
+    a_s = time.monotonic() - t0
+    keys = {"value", "vs_baseline", "mfu"} | {
+        "flops_per_clip_fwd", "infer_mfu", "serving_clips_per_sec",
+        "serving_mfu", "infer_clips_per_sec_int8", "infer_mfu_int8",
+        "serving_clips_per_sec_int8", "serving_mfu_int8",
+        "train_clips_per_sec", "flops_per_clip_train", "train_mfu",
+        "image_infer_imgs_per_sec_bf16", "image_infer_mfu",
+        "image_infer_imgs_per_sec_int8", "train_vs_baseline"}
+    numbers = {k: line.get(k, line["extra"].get(k)) for k in keys}
+    bad = {k: v for k, v in numbers.items()
+           if not isinstance(v, (int, float)) or not math.isfinite(v)
+           or v <= 0}
+    if bad or line["metric"] != "protoasnet_video_infer_clips_per_sec" \
+            or line["unit"] != "clips/s":
+        raise AssertionError(f"23 (a) bench: missing or bad keys {bad}")
+    if not all(line["launches"].get(s) for s in BENCH_SECTIONS):
+        raise AssertionError(f"23 (a) bench: a section never launched the "
+                             f"kernel: {line['launches']}")
+    ratio = _in_band("23 (a) bench", "value", line["value"], forward_128)
+    total += a
+    log(f"[23 bench] bench --quick in {a_s:.1f}s: value {line['value']} "
+        f"clips/s ({ratio:.3f}x phase 5's {forward_128:.1f}), mfu "
+        f"{line['mfu']}, serving {line['extra']['serving_clips_per_sec']}, "
+        f"int8 {line['extra']['infer_clips_per_sec_int8']}, train "
+        f"{line['extra']['train_clips_per_sec']} (its train batch), image "
+        f"{line['extra']['image_infer_imgs_per_sec_bf16']} imgs/s; "
+        f"roi_cosine_cuda launches {a} by section {line['launches']}")
+    t0 = time.monotonic()
+    rows, b = _tool("23 latency", serving_latency.main,
+                    ["--batches", *LATENCY_BATCHES, *on])
+    at = {r["batch"]: r for r in rows}
+    if sorted(at) != sorted(int(x) for x in LATENCY_BATCHES) or not b:
+        raise AssertionError(f"23 (b) latency: {rows}, launches {b}")
+    r_bf = _in_band("23 (b) latency", f"bf16 at {top}",
+                    at[top]["bf16_clips_per_sec"], line["value"])
+    r_q = _in_band("23 (b) latency", f"int8 at {top}",
+                   at[top]["int8_clips_per_sec"],
+                   line["extra"]["infer_clips_per_sec_int8"])
+    total += b
+    log(f"[23 latency] {len(rows)} batches in {time.monotonic() - t0:.1f}s; "
+        f"at {top} bf16 {at[top]['bf16_ms']:.2f} ms ({r_bf:.3f}x (a)), "
+        f"int8 {at[top]['int8_ms']:.2f} ms ({r_q:.3f}x (a)); roi_cosine_cuda "
+        f"launches {b}")
+    null, _ = _tool("23 daemon", daemon_load.main, NULL_ARGS)
+    t0 = time.monotonic()
+    rec, c = _tool("23 daemon", daemon_load.main, DAEMON_ARGS + on)
+    if not c or not rec["requests"]:
+        raise AssertionError(f"23 (c) daemon: {rec}, launches {c}")
+    total += c
+    log(f"[23 daemon] null: {null['overhead_us_per_sample']} us a sample, "
+        f"{null['samples_per_sec']} samples/s; flagship in "
+        f"{time.monotonic() - t0:.1f}s: {rec['samples_per_sec']} clips/s, "
+        f"p50 {rec['latency_ms_p50']} ms, p95 {rec['latency_ms_p95']} ms, "
+        f"mean batch {rec['mean_batch']}; no request failed; "
+        f"roi_cosine_cuda launches {c}")
+    acc, d = _tool("23 int8 accuracy", int8_accuracy.main,
+                   ["--run_dir", str(train["run"]), *on])
+    if not d or not acc["clips"] or not 0 <= acc["logit_rel_err"] < 0.08 \
+            or not all(math.isfinite(acc[k]) for k in (
+                "bal_acc_fp", "bal_acc_int8", "f1_fp", "f1_int8")):
+        raise AssertionError(f"23 (d) int8 accuracy: {acc}, launches {d}")
+    log(f"[23 int8 accuracy] phase 7's run, {acc['clips']} val clips: "
+        f"AUROC {acc['auroc_fp']} -> {acc['auroc_int8']}, bal-acc delta "
+        f"{acc['bal_acc_delta']:+.4f}, F1 delta {acc['f1_delta']:+.4f}, "
+        f"logit rel err {acc['logit_rel_err']:.4f}; roi_cosine_cuda "
+        f"launches {d}")
+    t0 = time.monotonic()
+    wide = _all_class_run(train["run"], work)
+    acc, e = _tool("23 int8 accuracy", int8_accuracy.main,
+                   ["--run_dir", str(wide), *on])
+    n_val = ACC_SPLITS.count("val") * ACC_VIDEOS // len(ACC_SPLITS)
+    if not e or acc["clips"] < n_val \
+            or not 0 <= acc["logit_rel_err"] < 0.08 \
+            or not all(math.isfinite(acc[k]) for k in (
+                "auroc_fp", "auroc_int8", "bal_acc_fp", "bal_acc_int8",
+                "f1_fp", "f1_int8")):
+        raise AssertionError(f"23 (d) int8 accuracy, every class: {acc}, "
+                             f"launches {e}")
+    total += d + e
+    log(f"[23 int8 accuracy] phase 7's weights on {acc['clips']} val clips "
+        f"of every class ({time.monotonic() - t0:.1f}s): AUROC fp "
+        f"{acc['auroc_fp']:.4f} int8 {acc['auroc_int8']:.4f} delta "
+        f"{acc['auroc_delta']:+.4f}, bal-acc {acc['bal_acc_fp']:.4f} -> "
+        f"{acc['bal_acc_int8']:.4f}, F1 {acc['f1_fp']:.4f} -> "
+        f"{acc['f1_int8']:.4f}, logit rel err {acc['logit_rel_err']:.4f}; "
+        f"roi_cosine_cuda launches {e}")
+    log(f"[23 tools] launches (a)-(d): {total}; phase 23 took "
+        f"{time.monotonic() - t_phase:.1f}s")
+    return total
+
+
 def _record(r):
     return {k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                               "bound_by", "library_ms")}
@@ -3487,7 +3713,8 @@ def main() -> int:
 
 
 def _phases(dev, card: str, cfgs, work: Path) -> int:
-    """Phases 1-22; the training runs stay under ``work`` for 13-22."""
+    """Phases 1-23; the training runs stay under ``work`` for 13-23."""
+    t_start = time.monotonic()
     from protoasnet_tpu_torch.ops import fused_c2p1d_cuda as fused_mod
     from protoasnet_tpu_torch.ops import l2_min_cuda as l2_mod
     from protoasnet_tpu_torch.ops import roi_cosine_cuda as roi_mod
@@ -3579,6 +3806,12 @@ def _phases(dev, card: str, cfgs, work: Path) -> int:
         dev, cfgs[VIDEO["label"]], work, train_rate)
     for name, count in tp_launches.items():
         launches[name] += count
+    # the measuring tools: the head at their shapes, then each tool with
+    # the count set to 0 just before it and read just after
+    tool_records = phase_tool_kernels(dev)
+    launches["roi_cosine_cuda"] += phase_tools(dev, train_counts, work,
+                                               rates[VIDEO["label"]][128])
+    log(f"[smoke] phases 1-23 took {time.monotonic() - t_start:.1f}s")
     print(card)
     print(json.dumps({"kernels": [
         dict(name="roi_cosine_cuda", route="cuda", source=roi_mod.SOURCE,
@@ -3586,7 +3819,7 @@ def _phases(dev, card: str, cfgs, work: Path) -> int:
              launches=launches["roi_cosine_cuda"], **head,
              backward=dict(backward, calls=train_counts["backward_calls"]
                            + roi_calls),
-             sharded=tp_records["roi_cosine_cuda"]),
+             sharded=tp_records["roi_cosine_cuda"], tools=tool_records),
         dict(name="l2_min_cuda", route="cuda", source=l2_mod.SOURCE,
              replaces=l2_mod.REPLACES, launches=launches["l2_min_cuda"],
              **l2, backward=dict(l2_backward, calls=l2_calls),

@@ -1,15 +1,18 @@
-"""Timing, bounds, tolerances and precision settings shared by the
-experiment scripts, ``chip_smoke.py`` and the card tests."""
+"""Timing, bounds, tolerances, precision settings and the card's name
+shared by the experiment scripts, the bench, ``chip_smoke.py`` and the
+card tests."""
 
 from __future__ import annotations
 
 import contextlib
+import subprocess
+import time
 from typing import Callable, Iterator, Tuple
 
 import torch
 
 __all__ = ["HBM_BYTES_PER_S", "PEAK_FLOP_PER_S", "BATCH", "TOL", "bound_ms",
-           "time_ms", "no_tf32", "max_rel_err"]
+           "time_ms", "wall_ms", "no_tf32", "max_rel_err", "card_line"]
 
 # published H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s, and
 # FLOP/s for the input dtype at fp32 accuracy: bf16 on the tensor cores (a
@@ -60,6 +63,27 @@ def time_ms(fn: Callable[[], object], target_ms: float = 200.0,
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def wall_ms(fn: Callable[[], object], iters: int = 2) -> float:
+    """Mean host time of ``fn()`` in ms over ``iters`` calls after one
+    warm-up call: the CPU's stand-in for ``time_ms`` (``--device cpu``)."""
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    return (time.perf_counter() - t0) / iters * 1e3
+
+
+def card_line() -> str:
+    """The card's name and power limit, as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` gives them (the
+    first card)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
 
 
 @contextlib.contextmanager

@@ -1,11 +1,13 @@
-"""Rendering of one prototype's evidence, numpy + OpenCV + PIL (the part
-of the JAX package's ``explain/render.py`` that the push calls).
+"""Rendering of one prototype's evidence, numpy + OpenCV + PIL (the JAX
+package's ``explain/render.py``).
 
 ``prototype_plot`` writes the 4-panel figure (base image, occurrence-masked
 image, TURBO heatmap overlay, raw map): a PNG for an image model, an MP4
 of the clip for a video model (OpenCV's MPEG-4 encoder; per-frame PNGs if
 no video backend works). The occurrence map is upsampled to the clip with
-separable linear weights on the host.
+separable linear weights on the host. ``heatmap_clip`` colours a whole
+clip's map in one call; ``write_video``, ``write_gif`` and
+``remove_images`` assemble frames written to disk and delete them.
 """
 
 from __future__ import annotations
@@ -18,7 +20,8 @@ import numpy as np
 
 from protoasnet_tpu_torch.data.transforms import NORM_MEAN, NORM_STD
 
-__all__ = ["upsample_occurrence_map", "prototype_plot"]
+__all__ = ["upsample_occurrence_map", "prototype_plot", "heatmap_clip",
+           "write_video", "write_gif", "remove_images"]
 
 _CAPTION_H = 22
 _PROTO_LABELS = ("base", "masked", "overlay", "mask")
@@ -155,6 +158,50 @@ def write_video_or_frames(frames: Sequence[np.ndarray], base_path: str,
 
         for t, f in enumerate(frames):
             Image.fromarray(f).save(f"{base_path}_{t}.png")
+
+
+def write_video(frame_paths: Sequence[str], video_path: str,
+                fps: int = 5) -> bool:
+    """Assemble PNG frames from disk into an MP4 (GIF fallback). Returns
+    True on success."""
+    import imageio.v2 as imageio
+
+    def as_rgb(arr: np.ndarray) -> np.ndarray:
+        if arr.ndim == 2:  # grayscale PNG
+            return np.repeat(arr[..., None], 3, axis=-1)
+        return arr[..., :3]  # drop alpha if present
+
+    frames = [as_rgb(np.asarray(imageio.imread(f))) for f in frame_paths]
+    return write_video_frames(frames, video_path, fps=fps) is not None
+
+
+def write_gif(frame_paths: Sequence[str], gif_path: str,
+              fps: int = 5) -> None:
+    """Assemble PNG frames from disk into a GIF."""
+    import imageio.v2 as imageio
+
+    frames = [imageio.imread(f) for f in frame_paths]
+    imageio.mimsave(gif_path, frames, duration=1000.0 / fps)
+
+
+def remove_images(paths: Sequence[str]) -> None:
+    """Delete the files of ``paths``; a missing one is skipped."""
+    for f in paths:
+        try:
+            os.remove(f)
+        except OSError:
+            pass
+
+
+def heatmap_clip(rescaled: np.ndarray) -> np.ndarray:
+    """(T, H, W) [0,1] map -> (T, H, W, 3) float TURBO heatmap in one
+    colormap call (the quantisation of a per-frame ``make_heatmap``)."""
+    import cv2
+
+    t, h, w = rescaled.shape
+    hm = cv2.applyColorMap(np.uint8(255 * np.clip(rescaled, 0.0, 1.0))
+                           .reshape(t * h, w), cv2.COLORMAP_TURBO)
+    return np.float32(hm[..., ::-1]).reshape(t, h, w, 3) / 255.0
 
 
 def _proto_frame(unnorm_img, rescaled, title) -> np.ndarray:

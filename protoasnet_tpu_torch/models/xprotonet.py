@@ -5,6 +5,8 @@ Forward contract, as the JAX package's ``XProtoNet``:
   push_forward           -> (roi_features (N,P,D), 1 - similarity01,
                              occurrence, logits)
   compute_occurrence_map -> occurrence
+  occurrence_map_softmaxed(trunk features) -> the map softmaxed over
+                           positions
 
 Inputs are channels-last: clips (N, T, H, W, 3) for a video trunk, images
 (N, H, W, 3) for a 2-D trunk. The trunk runs channels-first (NCDHW or
@@ -124,6 +126,18 @@ class XProtoNet(nn.Module):
     def compute_occurrence_map(self, x: torch.Tensor) -> torch.Tensor:
         with self._autocast(x):
             return self._occurrence(self._features(x))
+
+    def occurrence_map_softmaxed(self, fmap: torch.Tensor) -> torch.Tensor:
+        """The occurrence map softmax-normalised over the positions, per
+        prototype (the reference's ``get_occurence_map_softmaxed``, which
+        its training does not use). Takes trunk features, channels-last
+        (N, [T',] H', W', C), as the JAX package's does; returns (N, [T',]
+        H', W', P) in fp32."""
+        with self._autocast(fmap):
+            occ = self.occurrence_module(fmap, enter=self._enter)
+        n, p = occ.shape[0], occ.shape[-1]
+        return torch.softmax(occ.float().reshape(n, -1, p), dim=1).reshape(
+            occ.shape)
 
     def push_forward(self, x: torch.Tensor):
         roi, sim, occ, logits = self._heads(x)

@@ -9,6 +9,7 @@ XProtoNet) images (H, W, 3):
 
     save_serving_bundle("b.zip", model, model_config, (32, 112, 112, 3))
     fn, shape, dtype = load_serving_bundle_with_spec("b.zip")  # CUDA
+    shape, dtype = bundle_input_spec("b.zip")  # config.json only
     logits = fn(x)  # x (b, 32, 112, 112, 3) float32 -> (b, K) float32
     save_serving_bundle("i.zip", ppnet, ppnet_config, (224, 224, 3))
 
@@ -60,6 +61,7 @@ from protoasnet_tpu_torch.utils.device import resolve_device
 
 __all__ = ["save_serving_bundle", "load_serving_bundle",
            "load_serving_bundle_with_spec", "load_bundle_model",
+           "bundle_input_spec",
            "make_serving_fn", "make_sharded_serving_fn",
            "load_trained_agent", "export_run",
            "recommend", "tune_bundle", "serving_model"]
@@ -170,6 +172,29 @@ def make_sharded_serving_fn(model: torch.nn.Module,
     return fn
 
 
+def _bundle_meta(z: zipfile.ZipFile, path: str) -> Dict[str, Any]:
+    meta = json.loads(z.read("config.json"))
+    if meta.get("format") != _FORMAT:
+        raise ValueError(f"{path}: not a port bundle (format "
+                         f"{meta.get('format')!r})")
+    return meta
+
+
+def _input_spec(meta: Dict[str, Any]) -> Tuple[Tuple, Any]:
+    sample = tuple(meta["input_shape"])
+    if meta["uint8_gray"]:
+        return (None, *sample[:-1]), np.dtype(np.uint8)
+    return (None, *sample), np.dtype(np.float32)
+
+
+def bundle_input_spec(path: str) -> Tuple[Tuple, Any]:
+    """(shape, dtype) of a bundle's input batch, the batch dim None, from
+    its ``config.json`` alone: no model is built and no weights are read
+    (a serving host sizes its warm-up buffers with it)."""
+    with zipfile.ZipFile(path) as z:
+        return _input_spec(_bundle_meta(z, path))
+
+
 def load_bundle_model(path: str,
                       device: Optional[Union[str, torch.device]] = None
                       ) -> Tuple[torch.nn.Module, Tuple, Any, bool]:
@@ -178,27 +203,19 @@ def load_bundle_model(path: str,
     bundle's model is the quantised one."""
     dev = resolve_device(device)
     with zipfile.ZipFile(path) as z:
-        meta = json.loads(z.read("config.json"))
+        meta = _bundle_meta(z, path)
         npz = np.load(io.BytesIO(z.read("weights.npz")))
         weights = {k: npz[k] for k in npz.files}
         qstate = None
         if meta.get("int8", False):
             qnpz = np.load(io.BytesIO(z.read("qstate.npz")))
             qstate = qstate_from_arrays({k: qnpz[k] for k in qnpz.files})
-    if meta.get("format") != _FORMAT:
-        raise ValueError(f"{path}: not a port bundle (format "
-                         f"{meta.get('format')!r})")
     model = build_model(meta["model"], device="cpu")
     model.load_state_dict({k: torch.from_numpy(v)
                            for k, v in weights.items()})
     model = serving_model(model.to(dev), qstate)
-    uint8_gray = bool(meta["uint8_gray"])
-    sample = tuple(meta["input_shape"])
-    if uint8_gray:
-        sample, dtype = sample[:-1], np.dtype(np.uint8)
-    else:
-        dtype = np.dtype(np.float32)
-    return model, (None, *sample), dtype, uint8_gray
+    shape, dtype = _input_spec(meta)
+    return model, shape, dtype, bool(meta["uint8_gray"])
 
 
 def serving_model(model: torch.nn.Module,

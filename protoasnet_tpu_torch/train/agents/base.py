@@ -303,6 +303,19 @@ class BaseAgent:
     def run_epoch(self, epoch: int, mode: str = "train"):
         raise NotImplementedError
 
+    def print_model_summary(self) -> Dict[str, int]:
+        """Log the model's parameter count by top-level submodule (the
+        reference's torchsummary print; the JAX package's table has the
+        same rows) and return {name: count}."""
+        counts: Dict[str, int] = {}
+        for name, p in self.model.named_parameters():
+            top = name.split(".", 1)[0]
+            counts[top] = counts.get(top, 0) + p.numel()
+        for top, n in counts.items():
+            logging.info(f"  {top}: {n / 1e6:.3f}M params")
+        logging.info(f"  total: {sum(counts.values()) / 1e6:.3f}M params")
+        return counts
+
     def finalize(self) -> None:
         self.tracker.finish()
 
