@@ -58,6 +58,7 @@ from protoasnet_tpu_torch.quant import (calibrate_qstate_from_agent,
                                         qstate_from_arrays, qstate_to_arrays,
                                         quantized_model)
 from protoasnet_tpu_torch.utils.device import resolve_device
+from protoasnet_tpu_torch.utils.profiling import span
 
 __all__ = ["save_serving_bundle", "load_serving_bundle",
            "load_serving_bundle_with_spec", "load_bundle_model",
@@ -163,8 +164,9 @@ def make_sharded_serving_fn(model: torch.nn.Module,
             outs = []
             for i, (d, forward) in enumerate(zip(devices, forwards)):
                 with on(d):
-                    xt = torch.from_numpy(np.ascontiguousarray(
-                        x[i * k:(i + 1) * k])).to(d)
+                    with span("serve.h2d"):
+                        xt = torch.from_numpy(np.ascontiguousarray(
+                            x[i * k:(i + 1) * k])).to(d)
                     outs.append(forward(xt))
             return np.concatenate([o.float().cpu().numpy()
                                    for o in outs])[:b]

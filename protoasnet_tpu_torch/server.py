@@ -54,6 +54,8 @@ from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from protoasnet_tpu_torch.utils.profiling import interval, span
+
 __all__ = ["DynamicBatcher", "BatcherStats", "Reloader", "make_handler",
            "serve_forever", "serve_live", "prometheus_text"]
 
@@ -199,10 +201,12 @@ class BatcherStats:
 
 
 class _Pending:
-    __slots__ = ("x", "event", "result", "error", "t_submit", "abandoned")
+    __slots__ = ("x", "event", "result", "error", "t_submit", "abandoned",
+                 "request")
 
-    def __init__(self, x: np.ndarray):
+    def __init__(self, x: np.ndarray, request: Optional[int] = None):
         self.x = x              # (n, ...) batcher dtype, n >= 1
+        self.request = request  # the request's id in the spans, if traced
         self.event = threading.Event()
         self.result: Optional[np.ndarray] = None
         self.error: Optional[BaseException] = None
@@ -272,8 +276,9 @@ class DynamicBatcher:
                              f"input {self.dtype}")
         return np.ascontiguousarray(x, dtype=self.dtype)
 
-    def _enqueue(self, x: np.ndarray) -> _Pending:
-        p = _Pending(x)
+    def _enqueue(self, x: np.ndarray, request: Optional[int] = None
+                 ) -> _Pending:
+        p = _Pending(x, request)
         # lock orders the closed-check against close(): a put that won the
         # check lands before the sentinel, so _drain_closed always sees it
         with self._close_lock:
@@ -305,14 +310,15 @@ class DynamicBatcher:
         deadline = None if timeout is None else time.monotonic() + timeout
         return self._wait(self._enqueue(x), deadline)
 
-    def submit_many(self, x: np.ndarray, timeout: Optional[float] = None
-                    ) -> np.ndarray:
+    def submit_many(self, x: np.ndarray, timeout: Optional[float] = None,
+                    request: Optional[int] = None) -> np.ndarray:
         """Any-size request: enqueue ALL max_batch-sized chunks up front
         (so chunk k+1's H2D staging overlaps chunk k's compute), then wait
-        for each in order."""
+        for each in order. ``request`` is the request's id in the spans
+        (``utils/profiling.py``): each chunk's ``batcher.queue`` carries it."""
         x = self._validate(x)
         deadline = None if timeout is None else time.monotonic() + timeout
-        pendings = [self._enqueue(x[i:i + self.max_batch])
+        pendings = [self._enqueue(x[i:i + self.max_batch], request)
                     for i in range(0, len(x), self.max_batch)]
         try:
             return np.concatenate([self._wait(p, deadline) for p in pendings])
@@ -456,31 +462,42 @@ class DynamicBatcher:
         if not group:
             return
         bucket = self._pick_bucket(total)
-        try:
-            # the buffer alloc is INSIDE the try: a transient MemoryError
-            # on a big bucket must fail this group's waiters, not kill the
-            # dispatch thread (which would zombie the whole daemon)
-            x = np.zeros((bucket, *group[0].x.shape[1:]), self.dtype)
-            ofs = 0
-            for p in group:
-                x[ofs:ofs + len(p.x)] = p.x
-                ofs += len(p.x)
-            out = np.asarray(self.fn(x), np.float32)
-            t_done = time.monotonic()
-            ofs = 0
-            lats = []
-            for p in group:
-                p.result = out[ofs:ofs + len(p.x)]
-                ofs += len(p.x)
-                lats.append((t_done - p.t_submit) * 1e3)
-                p.event.set()
-            self.stats.record_batch(total, bucket, lats)
-        except BaseException as e:  # noqa: BLE001 — propagate to all waiters
-            self.stats.record_error()
-            for p in group:
-                if not p.event.is_set():
-                    p.error = e
+        with span("batcher.batch", samples=total, bucket=bucket) as batch:
+            try:
+                # the buffer alloc is INSIDE the try: a transient
+                # MemoryError on a big bucket must fail this group's
+                # waiters, not kill the dispatch thread (which would zombie
+                # the whole daemon)
+                with span("batcher.assemble"):
+                    x = np.zeros((bucket, *group[0].x.shape[1:]),
+                                 self.dtype)
+                    ofs = 0
+                    for p in group:
+                        x[ofs:ofs + len(p.x)] = p.x
+                        ofs += len(p.x)
+                if batch is not None:
+                    # each chunk's wait, from its enqueue to this call
+                    now_ns, now = time.time_ns(), time.monotonic()
+                    for p in group:
+                        waited_ns = int((now - p.t_submit) * 1e9)
+                        interval("batcher.queue", now_ns - waited_ns, now_ns,
+                                 parent=batch.id, request=p.request)
+                out = np.asarray(self.fn(x), np.float32)
+                t_done = time.monotonic()
+                ofs = 0
+                lats = []
+                for p in group:
+                    p.result = out[ofs:ofs + len(p.x)]
+                    ofs += len(p.x)
+                    lats.append((t_done - p.t_submit) * 1e3)
                     p.event.set()
+                self.stats.record_batch(total, bucket, lats)
+            except BaseException as e:  # noqa: BLE001 — to all waiters
+                self.stats.record_error()
+                for p in group:
+                    if not p.event.is_set():
+                        p.error = e
+                        p.event.set()
 
 
 class Reloader:
@@ -836,21 +853,24 @@ def make_handler(batcher: DynamicBatcher, sample_ndim: int,
                     self._send(413, f"body {n} bytes > limit "
                                f"{max_body_bytes}".encode(), "text/plain")
                     return
-                try:
-                    x = np.load(io.BytesIO(self.rfile.read(n)),
-                                allow_pickle=False)
-                except Exception as e:
-                    # np.load raises EOFError/OSError/... on truncated or
-                    # empty bodies — all client-side payload problems (400),
-                    # not retryable server faults (503)
-                    raise ValueError(f"bad .npy payload: {e}") from None
-                if x.ndim == sample_ndim:
-                    x = x[None]
-                if x.ndim != sample_ndim + 1:
-                    raise ValueError(
-                        f"expected rank {sample_ndim} or {sample_ndim + 1}, "
-                        f"got {x.ndim}")
-                out = batcher.submit_many(x, timeout=timeout_s)
+                with span("http.decode") as decode:
+                    try:
+                        x = np.load(io.BytesIO(self.rfile.read(n)),
+                                    allow_pickle=False)
+                    except Exception as e:
+                        # np.load raises EOFError/OSError/... on truncated
+                        # or empty bodies — all client-side payload problems
+                        # (400), not retryable server faults (503)
+                        raise ValueError(f"bad .npy payload: {e}") from None
+                    if x.ndim == sample_ndim:
+                        x = x[None]
+                    if x.ndim != sample_ndim + 1:
+                        raise ValueError(
+                            f"expected rank {sample_ndim} or "
+                            f"{sample_ndim + 1}, got {x.ndim}")
+                out = batcher.submit_many(
+                    x, timeout=timeout_s,
+                    request=None if decode is None else decode.id)
                 buf = io.BytesIO()
                 np.save(buf, out)
                 self._send(200, buf.getvalue())

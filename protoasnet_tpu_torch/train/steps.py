@@ -37,6 +37,7 @@ gradient, a prototype shard's too, over the ``data`` group only.
 
 from __future__ import annotations
 
+import itertools
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
@@ -49,6 +50,7 @@ from protoasnet_tpu_torch.models.layers import prototype_class_identity
 from protoasnet_tpu_torch.models.norm import own_bn_stats
 from protoasnet_tpu_torch.parallel.mesh import sync_grads
 from protoasnet_tpu_torch.train.optim import GradAccumulator, GroupAdam
+from protoasnet_tpu_torch.utils.profiling import counting_syncs, span
 
 __all__ = ["make_xprotonet_steps", "make_protopnet_steps"]
 
@@ -129,24 +131,31 @@ def make_xprotonet_steps(
             occ_transformed=None if occ_t is None else _wide(occ_t),
             affine_params=aff, shard=model.prototype_shard)
 
+    micro_steps = itertools.count()
+
     def train_step(cine, target, valid, lrs: Dict[str, float],
                    affine=None, generator: Optional[torch.Generator] = None
                    ) -> Dict[str, Any]:
-        model.train()
-        aff = _draw(affine, generator)
-        logits, sim, occ = model(cine)
-        occ_t = None
-        if aff is not None:
-            # affine(x) in train mode: its own batch statistics; the running
-            # stats keep only the main forward's update
-            with own_bn_stats(model):
-                occ_t = model.compute_occurrence_map(
-                    affine_batch(cine, *aff))
-        total, terms = _terms(logits, sim, occ, target, valid, occ_t, aff)
-        _backward(model, total, accumulator)
-        applied = _apply(optimizer, accumulator, lrs, stage)
-        return {**_reported(total, terms, logits=logits, similarities=sim),
-                "applied": applied}
+        # traced (a profiler open): one span a micro-step, counting its
+        # host synchronisations on the card (utils/profiling.py)
+        with span("train.step", step=next(micro_steps)), \
+                counting_syncs(dev):
+            model.train()
+            aff = _draw(affine, generator)
+            logits, sim, occ = model(cine)
+            occ_t = None
+            if aff is not None:
+                # affine(x) in train mode: its own batch statistics; the
+                # running stats keep only the main forward's update
+                with own_bn_stats(model):
+                    occ_t = model.compute_occurrence_map(
+                        affine_batch(cine, *aff))
+            total, terms = _terms(logits, sim, occ, target, valid, occ_t,
+                                  aff)
+            _backward(model, total, accumulator)
+            applied = _apply(optimizer, accumulator, lrs, stage)
+            return {**_reported(total, terms, logits=logits,
+                                similarities=sim), "applied": applied}
 
     @torch.no_grad()
     def eval_step(cine, target, valid, affine=None,

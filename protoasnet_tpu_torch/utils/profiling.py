@@ -8,8 +8,11 @@
   ``tensorboard_trace_handler`` (a ``*.pt.trace.json`` TensorBoard's
   profiler plugin loads); the agents open it at ``profile_epoch`` of a
   training epoch when ``profile_dir`` or ``PROTOASNET_PROFILE_DIR`` is set.
-* ``annotate(name)``: ``torch.profiler.record_function``, a named region
-  inside an active trace.
+* ``span(name, **ids)``, ``count(name, n)``, ``interval(...)`` and
+  ``spans()``: spans and counters inside the program (the daemon's HTTP
+  decode, queue wait, batch assembly and H2D copy; the train micro-step and
+  its host synchronisations), recorded only while a torch profiler is open
+  in the process (below).
 * ``device_window(fn)``: a profiled run of ``fn`` that must hold device
   events: it raises when none came back, instead of returning an empty
   table (``DeviceWindow`` then reads kernels, device time, the host's
@@ -30,22 +33,48 @@ windows lost their kernel even with 1 s at each end (ROADMAP.md §3, F4,
 open). So every window keeps ``PAD_S`` of idle time at each end,
 ``device_window`` raises when a window holds no device event, and
 ``device_ms`` averages over the kernels recorded.
+
+Spans. Tracing is on exactly while a ``torch.profiler`` window is open in
+the process, whichever thread opened it (``torch.autograd.profiler.
+_is_profiler_enabled``, a module flag; the thread-local
+``torch._C._autograd._profiler_enabled()`` reads False on other threads);
+with torch not imported it is off. Off, ``span`` costs one flag read and
+returns a shared no-op context. On, each span records its name, start and
+end (Unix ns, the time base of the profiler's own events:
+``KinetoEvent.start_ns()``), its thread, its id, its parent (the innermost
+span open on the same thread) and its counts, and opens a host range of
+its name (as ``record_function`` does, but without the range's copy on the
+device timeline), so a profiler that records that thread shows it on the
+trace's timeline (``torch.profiler`` records the host events of the thread
+that opened it only). A wait that starts on one thread and ends on
+another is recorded by ``interval`` with explicit ids.
+This module imports torch only inside functions: the daemon's front end
+(``server.py``) loads no torch at import.
 """
 
 from __future__ import annotations
 
 import contextlib
+import itertools
 import logging
+import os
+import sys
+import threading
 import time
-from typing import Callable, Dict, Iterable, Optional
+import warnings
+from typing import Any, Callable, Dict, Iterable, List, Optional
 
-import torch
-
-__all__ = ["StepTimer", "trace", "annotate", "device_window", "DeviceWindow",
-           "EmptyDeviceWindow", "PAD_S"]
+__all__ = ["StepTimer", "trace", "device_window", "DeviceWindow",
+           "EmptyDeviceWindow", "PAD_S", "tracing", "span", "count",
+           "interval", "spans", "dropped", "reset", "counting_syncs",
+           "MAX_SPANS"]
 
 # idle host time at each end of a profiler window (see above)
 PAD_S = 0.05
+# spans kept in memory; past it ``dropped()`` counts the spans not kept
+MAX_SPANS = 1 << 18
+# the warning of ``torch.cuda.set_sync_debug_mode("warn")``
+_SYNC_WARNING = "called a synchronizing CUDA operation"
 
 
 class StepTimer:
@@ -82,6 +111,7 @@ class StepTimer:
 
 
 def _activities(cuda: Optional[bool] = None):
+    import torch
     from torch.profiler import ProfilerActivity
 
     if cuda is None:
@@ -96,6 +126,7 @@ def trace(log_dir: Optional[str]):
     if not log_dir:
         yield
         return
+    import torch
     from torch.profiler import profile, tensorboard_trace_handler
 
     prof = profile(activities=_activities(),
@@ -112,11 +143,6 @@ def trace(log_dir: Optional[str]):
         prof.stop()
 
 
-def annotate(name: str):
-    """Named region inside an active trace."""
-    return torch.profiler.record_function(name)
-
-
 class EmptyDeviceWindow(RuntimeError):
     """A profiled window that ran device work came back without a device
     event."""
@@ -126,6 +152,8 @@ class DeviceWindow:
     """What one ``device_window`` recorded, per call of its function."""
 
     def __init__(self, prof, iters: int):
+        import torch
+
         self.iters = iters
         self.events = prof.key_averages()
         cuda = torch.autograd.DeviceType.CUDA
@@ -169,8 +197,10 @@ class DeviceWindow:
     def host_counts(self, names: Iterable[str]) -> Dict[str, float]:
         """Count per call of each host event named exactly ``name`` (the
         CUDA runtime's calls, ``cudaStreamSynchronize`` ..., and ops)."""
+        from torch.autograd import DeviceType
+
         by = {e.key: e.count for e in self.events
-              if e.device_type != torch.autograd.DeviceType.CUDA}
+              if e.device_type != DeviceType.CUDA}
         return {n: by.get(n, 0) / self.iters for n in names}
 
     def device_counts(self, prefix: str) -> float:
@@ -190,6 +220,7 @@ def device_window(fn: Callable[[], object], iters: int = 1,
     so an empty table is a fault of the measurement, never a result.
     ``launch_calls`` and ``kernel_records`` say whether records went
     missing. ``cuda=False`` (or no card) asks for CPU activity only."""
+    import torch
     from torch.profiler import profile
 
     acts = _activities(cuda)
@@ -212,3 +243,189 @@ def device_window(fn: Callable[[], object], iters: int = 1,
             f"(activities {[a.name for a in acts]}; on the card the profiler "
             f"can drop a window's records: ROADMAP.md section 3, F4)")
     return window
+
+
+# -- spans and counters (see the module's docstring) --------------------------
+
+def tracing() -> bool:
+    """True while a torch profiler is open in this process."""
+    prof = sys.modules.get("torch.autograd.profiler")
+    return prof is not None and prof._is_profiler_enabled
+
+
+class _Recorder:
+    """The process's finished spans, at most ``MAX_SPANS`` of them."""
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.kept: List["_Span"] = []
+        self.dropped = 0
+        self.ids = itertools.count(1)
+        self.local = threading.local()
+
+    def stack(self) -> List["_Span"]:
+        st = getattr(self.local, "stack", None)
+        if st is None:
+            st = self.local.stack = []
+        return st
+
+    def add(self, s: "_Span") -> None:
+        with self.lock:
+            if len(self.kept) < MAX_SPANS:
+                self.kept.append(s)
+            else:
+                self.dropped += 1
+
+
+_REC = _Recorder()
+_OFF = contextlib.nullcontext()
+
+
+class _Span:
+    __slots__ = ("name", "id", "parent", "ids", "counts", "sites", "thread",
+                 "start_ns", "end_ns", "_range")
+
+    def __init__(self, name: str, ids: Dict[str, Any],
+                 parent: Optional[int] = None):
+        self.name, self.ids, self.parent = name, ids, parent
+        self.id = next(_REC.ids)
+        self.counts: Dict[str, int] = {}
+        self.sites: List[str] = []
+        self.thread = threading.current_thread().name
+        self.start_ns = self.end_ns = 0
+        self._range = None
+
+    def __enter__(self) -> "_Span":
+        from torch._C._profiler import _RecordFunctionFast
+
+        stack = _REC.stack()
+        if stack:
+            self.parent = stack[-1].id
+        stack.append(self)
+        # stamped outside the range: the span holds its range's event,
+        # whose first call in a process takes a millisecond or more
+        self.start_ns = time.time_ns()
+        # a function-scope range: ``record_function`` opens a user-scope
+        # one, which the CUDA profiler also mirrors onto the device's
+        # timeline over the range's kernels, where a reader of device
+        # intervals counts it as device work (a traced train micro-step's
+        # mirror read as 13.7 s of "device time" in a 30-s window)
+        self._range = _RecordFunctionFast(self.name)
+        self._range.__enter__()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._range.__exit__(None, None, None)
+        self.end_ns = time.time_ns()
+        self._range = None
+        _REC.stack().pop()
+        _REC.add(self)
+
+    def as_dict(self) -> Dict[str, Any]:
+        return {"name": self.name, "id": self.id, "parent": self.parent,
+                "thread": self.thread, "start_ns": self.start_ns,
+                "end_ns": self.end_ns, "ids": dict(self.ids),
+                "counts": dict(self.counts), "sites": list(self.sites)}
+
+
+def span(name: str, **ids):
+    """``with span(name, **ids) as s:`` records the block as a span while
+    tracing (``s`` is the span, ``s.id`` its id); otherwise a no-op
+    context whose ``s`` is None."""
+    if not tracing():
+        return _OFF
+    return _Span(name, ids)
+
+
+def count(name: str, n: int = 1, site: Optional[str] = None) -> None:
+    """Add ``n`` to the count ``name`` of the innermost span open on this
+    thread (and ``site``, a call site, to its ``sites``); nothing without
+    one."""
+    stack = getattr(_REC.local, "stack", None)
+    if stack:
+        s = stack[-1]
+        s.counts[name] = s.counts.get(name, 0) + n
+        if site is not None:
+            s.sites.append(site)
+
+
+def interval(name: str, start_ns: int, end_ns: int,
+             parent: Optional[int] = None, **ids) -> None:
+    """Record a span measured elsewhere (a wait that starts on one thread
+    and ends on another), while tracing. It opens no host range: a range
+    is entered and left on one thread."""
+    if tracing():
+        s = _Span(name, ids, parent)
+        s.start_ns, s.end_ns = int(start_ns), int(end_ns)
+        _REC.add(s)
+
+
+def spans() -> List[Dict[str, Any]]:
+    """Every span recorded (since ``reset``), as dicts: name, id, parent,
+    thread, start_ns, end_ns, ids, counts, sites."""
+    with _REC.lock:
+        kept = list(_REC.kept)
+    return [s.as_dict() for s in kept]
+
+
+def dropped() -> int:
+    """Spans not kept: recorded past ``MAX_SPANS``."""
+    return _REC.dropped
+
+
+def reset() -> None:
+    """Forget every span recorded and the dropped count."""
+    with _REC.lock:
+        _REC.kept.clear()
+        _REC.dropped = 0
+
+
+def _call_site() -> str:
+    """The innermost frame outside torch, ``warnings`` and this module."""
+    import torch
+
+    skip = (os.path.dirname(torch.__file__) + os.sep, warnings.__file__,
+            __file__)
+    f = sys._getframe(1)
+    while f is not None and f.f_code.co_filename.startswith(skip):
+        f = f.f_back
+    if f is None:
+        return "?"
+    path = f.f_code.co_filename
+    short = os.sep.join(path.split(os.sep)[-2:])
+    return f"{short}:{f.f_lineno} ({f.f_code.co_name})"
+
+
+@contextlib.contextmanager
+def _syncs_counted():
+    import torch
+
+    shown = warnings.showwarning
+
+    def show(message, category, filename, lineno, file=None, line=None):
+        if _SYNC_WARNING in str(message):
+            count("syncs", 1, _call_site())
+        else:
+            shown(message, category, filename, lineno, file, line)
+
+    before = torch.cuda.get_sync_debug_mode()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = show
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield
+        finally:
+            torch.cuda.set_sync_debug_mode(before)
+
+
+def counting_syncs(device):
+    """While tracing, and ``device`` is a card: the block runs under
+    ``torch.cuda.set_sync_debug_mode("warn")``, and each host
+    synchronisation it makes (on any thread: the mode and the warning
+    filters are the process's) adds 1 to the count ``syncs`` of the
+    innermost span open on the thread that is warned, with its call site;
+    the mode is set back afterwards. Otherwise a no-op context."""
+    if not tracing() or device.type != "cuda":
+        return _OFF
+    return _syncs_counted()

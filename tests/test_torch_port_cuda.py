@@ -300,6 +300,67 @@ def test_train_step_goes_through_the_kernel_and_its_gradient(dev):
     assert not torch.equal(model.prototype_vectors, before)
 
 
+def test_train_step_sync_counter_equals_the_profilers_syncs(dev):
+    """The flagship's bf16 micro-step at batch 5, traced by
+    ``device_window``: the ``syncs`` its ``train.step`` spans count (the
+    sync debug mode's warnings, ``utils/profiling.py::counting_syncs``)
+    equal the runtime's ``cudaStreamSynchronize`` and
+    ``cudaDeviceSynchronize`` calls the profiler recorded over the same
+    micro-steps, less the window's own (its closing synchronize and the
+    profiler's, counted in a window of one small kernel a call). On a
+    difference the message names every call site the counter saw."""
+    from collections import Counter
+    from pathlib import Path
+
+    from protoasnet_tpu_torch.losses.bundle import LossBundle
+    from protoasnet_tpu_torch.models.builder import build_model
+    from protoasnet_tpu_torch.train.optim import (GROUPS, GradAccumulator,
+                                                  GroupAdam)
+    from protoasnet_tpu_torch.train.steps import make_xprotonet_steps
+    from protoasnet_tpu_torch.utils import profiling
+    from protoasnet_tpu_torch.utils.config import load_config
+
+    cfg = load_config(str(Path(__file__).resolve().parents[1] /
+                          "protoasnet_tpu/configs/ours_protoasnet_video.yml"))
+    model = build_model(dict(cfg["model"], pretrained=False), device=dev,
+                        seed=0)
+    opt = GroupAdam(model, {g: 1e-4 for g in GROUPS})
+    step = make_xprotonet_steps(
+        model, LossBundle(cfg["train"]["criterion"], num_classes=4,
+                          abstain_class=True),
+        opt, GradAccumulator(opt.params, 2))[0]
+    x = torch.randn((5, 32, 112, 112, 3), device=dev)
+    target = torch.tensor([0, 1, 2, 0, 1], device=dev)
+    valid = torch.ones(5, dtype=torch.bool, device=dev)
+    lrs = {g: 1e-4 for g in GROUPS}
+    affine = (torch.tensor(7.0), torch.tensor(1.2))  # as the bench stages
+    iters = 4  # two Adam updates
+
+    def runtime_syncs(fn):
+        window = profiling.device_window(fn, iters=iters, warmup=1)
+        calls = window.host_counts(("cudaStreamSynchronize",
+                                    "cudaDeviceSynchronize"))
+        return round(sum(calls.values()) * iters), calls
+
+    profiling.reset()
+    try:
+        own, _ = runtime_syncs(lambda: torch.ones(8, device=dev).add_(1))
+        total, calls = runtime_syncs(
+            lambda: step(x, target, valid, lrs, affine=affine))
+        steps = [s for s in profiling.spans() if s["name"] == "train.step"]
+    finally:
+        profiling.reset()
+    counted = sum(s["counts"].get("syncs", 0) for s in steps)
+    sites = Counter(site for s in steps for site in s["sites"])
+    assert len(steps) == iters
+    assert counted == total - own, (
+        f"the counter saw {counted} syncs in {iters} micro-steps, the "
+        f"profiler {total} ({calls} per call) less the window's own {own}; "
+        f"the counter's call sites: {dict(sites)}")
+    print(f"syncs per micro-step {counted / iters:g}; call sites "
+          f"{dict(sites)}")
+
+
 def _l2_data(shape, dev, seed=12):
     """Sigmoid-range features and U(0,1) prototypes, as ProtoPNet's
     "regular" add-on and its init produce."""

@@ -6,7 +6,7 @@
   loads as JSON (the agent's window: ``tests/test_torch_port_device_metrics.py``).
 - ``device_window`` raises ``EmptyDeviceWindow`` on a window without a
   device event: here a window with no CUDA activity requested, the case
-  that stands for the card's empty traces (ROADMAP §3, F4); ``annotate``
+  that stands for the card's empty traces (ROADMAP §3, F4); ``span``
   names a region of an active window.
 """
 
@@ -19,8 +19,8 @@ import torch
 from protoasnet_tpu.utils.profiling import StepTimer as JaxStepTimer
 from protoasnet_tpu_torch.utils.profiling import (PAD_S, DeviceWindow,
                                                   EmptyDeviceWindow,
-                                                  StepTimer, annotate,
-                                                  device_window, trace)
+                                                  StepTimer, device_window,
+                                                  span, trace)
 
 
 def test_step_timer():
@@ -58,7 +58,7 @@ def test_trace_noop_without_dir(tmp_path):
 def test_trace_writes_one_loadable_file(tmp_path):
     t0 = time.perf_counter()
     with trace(str(tmp_path)):
-        with annotate("the_region"):
+        with span("the_region"):
             torch.ones(64, 64) @ torch.ones(64, 64)
     assert time.perf_counter() - t0 >= 2 * PAD_S  # the window's margins
     (path,) = tmp_path.glob("*.pt.trace.json")
