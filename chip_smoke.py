@@ -2126,17 +2126,19 @@ def phase_tune(dev, bundle: Path, forward_128: float):
     # the tuned forwards against the plain head at each candidate batch
     model, _, _, uint8_gray = load_bundle_model(str(bundle), dev)
     forward = _device_forward(model, uint8_gray)
+    # a serving forward copies the model's attributes when it is built
+    model.head_impl = "torch"
+    plain = _device_forward(model, uint8_gray)
+    model.head_impl = None
     g = torch.Generator(device=dev).manual_seed(17)
     vs_plain = {}
     with torch.inference_mode():
         for b in (b for b in want if "samples_per_sec" in results[b]):
             xb = torch.randn((int(b), *CLIP), generator=g, device=dev)
             kernel = forward(xb).float()
-            model.head_impl = "torch"
-            vs_plain[b] = (kernel - forward(xb).float()).abs().max().item()
-            model.head_impl = None
+            vs_plain[b] = (kernel - plain(xb).float()).abs().max().item()
             del xb, kernel
-    del model
+    del model, forward, plain
     if not vs_plain or max(vs_plain.values()) > 2e-2:
         raise AssertionError(f"tune: kernel vs plain head {vs_plain}")
     at_128 = results["128"].get("samples_per_sec")

@@ -53,12 +53,14 @@ import numpy as np
 import torch
 
 from protoasnet_tpu_torch.data.transforms import normalize
+from protoasnet_tpu_torch.models.aligned import (aligned_input,
+                                                 aligned_serving_model)
 from protoasnet_tpu_torch.models.builder import build_model
 from protoasnet_tpu_torch.quant import (calibrate_qstate_from_agent,
                                         qstate_from_arrays, qstate_to_arrays,
                                         quantized_model)
 from protoasnet_tpu_torch.utils.device import resolve_device
-from protoasnet_tpu_torch.utils.profiling import span
+from protoasnet_tpu_torch.utils.profiling import count, span
 
 __all__ = ["save_serving_bundle", "load_serving_bundle",
            "load_serving_bundle_with_spec", "load_bundle_model",
@@ -109,15 +111,21 @@ def save_serving_bundle(path: str, model: torch.nn.Module,
 def _device_forward(model: torch.nn.Module, uint8_gray: bool = False
                     ) -> Callable[[torch.Tensor], torch.Tensor]:
     """A batch already on ``model``'s device, in the bundle's input dtype
-    -> logits on the device; the caller holds the grad mode."""
+    -> logits on the device; the caller holds the grad mode. A float
+    R(2+1)D model serves through its copy laid out for cuDNN
+    (``models/aligned.py``), built here once, on the batch as that copy's
+    stem takes it; each such forward counts ``serve.aligned_trunk`` on the
+    innermost span open (the daemon's ``batcher.batch``)."""
+    served = aligned_serving_model(model)
 
     def forward(xt: torch.Tensor) -> torch.Tensor:
         if uint8_gray:
             xt = normalize(xt.to(torch.float32) * (1.0 / 255.0))
             xt = xt[..., None].expand(*xt.shape, 3)
-        else:
-            xt = xt.to(torch.float32)
-        return model(xt)[0]
+        if served is None:
+            return model(xt.to(torch.float32))[0]
+        count("serve.aligned_trunk")
+        return served(aligned_input(xt, served.dtype))[0]
 
     return forward
 

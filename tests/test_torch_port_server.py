@@ -24,7 +24,7 @@ from protoasnet_tpu_torch import server
 from protoasnet_tpu_torch.models.builder import build_model
 from protoasnet_tpu_torch.serve import (load_serving_bundle,
                                         load_serving_bundle_with_spec,
-                                        save_serving_bundle)
+                                        make_serving_fn, save_serving_bundle)
 from torch_port_isolation import isolated, subprocess_env
 
 _isolated = isolated(1)
@@ -97,7 +97,10 @@ def test_bundle_roundtrip(bundle):
     fn, shape, dtype = load_serving_bundle_with_spec(path, device="cpu")
     assert shape == (None, *SAMPLE) and dtype == np.float32
     x = _clips(2, 0)
-    np.testing.assert_array_equal(fn(x), _forward(model, x))
+    # bit for bit what the model it holds serves (the served R(2+1)D trunk
+    # sums the stem's products in another order than the model's forward:
+    # tests/test_torch_port_aligned_trunk.py holds the two together)
+    np.testing.assert_array_equal(fn(x), make_serving_fn(model)(x))
 
 
 def test_uint8_gray_bundle_applies_eval_transform(bundle, tmp_path):
