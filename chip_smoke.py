@@ -9,7 +9,8 @@ reference's ``.pth`` both ways, the flagship served as w8a8 int8, and the
 last trunks (r3d_18, VGG, DenseNet), data parallelism through
 ``torch.distributed.run``, prototype tensor parallelism, and the repo's
 measuring tools (the headline bench, serving latency, daemon load, int8
-accuracy).
+accuracy), and the Video Swin-B trunk's window attention kernel and its
+served path.
 
     python3 chip_smoke.py
 
@@ -221,7 +222,20 @@ raises and the script exits non-zero without printing a result):
    videos, 12 of each class: AUROC defined for both models. Before them,
    ``roi_cosine_cuda`` at the batches the tools launch it at (N=1-64 at
    the flagship's S, P, D, fp32 and bf16) within phase 2's limits, and
-   its backward at the bench's train batch of 8.
+   its backward at the bench's train batch of 8;
+24. the Video Swin-B trunk: (a) ``window_attn_cuda`` against the plain
+   route at the three stage shapes of 32x112x112 clips at batch 128,
+   bf16 and fp32, shifted and not, every clip against float64 (computed
+   16 clips at a time; fp32 within 1e-5 of max |ref|, bf16 on the same
+   bf16 inputs within 1e-2), and each timed (``experiments.window_attn``:
+   the wrapper call, the kernel on the device, its bound, the plain route
+   and the library's fused attention with the bias broadcast); (b) a
+   bf16 ``swin3d_b`` bundle (uint8 gray) served by
+   ``server.serve_forever`` at ``max_batch`` 128 with ``window_attn_cuda.
+   launches`` set to 0 just before and read just after: 22 a batch, the
+   warm-up's buckets and the served batches; the served logits against a
+   direct forward of the same padded batch and against the model with
+   the plain route in the kernel's place.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or of the JAX
@@ -258,7 +272,7 @@ from protoasnet_tpu_torch.experiments.common import (card_line, max_rel_err,
 REPO = Path(__file__).resolve().parent
 CONFIGS = REPO / "protoasnet_tpu" / "configs"
 SOURCES = ("roi_cosine.cu", "l2_min.cu", "temporal_conv.cu",
-           "fused_c2p1d.cu")
+           "fused_c2p1d.cu", "window_attn.cu")
 # the three served models: config, per-sample input, what a sample is
 VIDEO = dict(label="video flagship", config="ours_protoasnet_video.yml",
              sample=(32, 112, 112, 3), unit="clips")
@@ -3690,6 +3704,148 @@ def phase_tools(dev, train, work: Path, forward_128: float) -> int:
     return total
 
 
+SWIN_CONFIG = REPO / "perfbench/configs/swin3d/protoasnet_video_swin3d_b.json"
+SWIN_BATCH = 128  # the daemon's default max_batch, the cell's bucket
+SWIN_REQUESTS = (128, 1, 3)  # clips a POST: buckets 128, 1 and 4
+SWIN_CHUNK = 16  # clips a float64 reference call
+
+
+def _swin_stage_checks(dev, stage):
+    """The kernel against float64 at one stage shape, batch 128, both
+    dtypes, shifted and not: the largest error over max |ref| of each."""
+    from protoasnet_tpu_torch.experiments.window_attn import STAGES, WINDOW
+    from protoasnet_tpu_torch.ops import window_attn
+    from protoasnet_tpu_torch.ops.window_attn_cuda import window_attn_cuda
+
+    size, c, heads, shifted_by = STAGES[stage]
+    g = torch.Generator(device=dev).manual_seed(100 + stage)
+    qkv = torch.randn((SWIN_BATCH, *size, 3 * c), generator=g, device=dev)
+    table = torch.randn((15 * 13 * 13, heads), generator=g, device=dev)
+    index = window_attn.relative_position_index(WINDOW, dev)
+    errs = {}
+    for shift in ((0, 0, 0), shifted_by):
+        for dtype in (torch.float32, torch.bfloat16):
+            x = qkv.to(dtype)
+            with no_tf32():
+                got = window_attn_cuda(x, table, index, heads, WINDOW, shift,
+                                       WINDOW)
+                worst, top = 0.0, 0.0
+                for i in range(0, SWIN_BATCH, SWIN_CHUNK):
+                    want = window_attn.window_attention_torch(
+                        x[i:i + SWIN_CHUNK].double(), table.double(), index,
+                        heads, WINDOW, shift)
+                    worst = max(worst, float(
+                        (got[i:i + SWIN_CHUNK].double() - want).abs().max()))
+                    top = max(top, float(want.abs().max()))
+            key = f"{'bf16' if dtype == torch.bfloat16 else 'fp32'}" \
+                  f"{'-shifted' if any(shift) else ''}"
+            errs[key] = worst / top
+            if not worst <= TOL[dtype] * top:
+                raise AssertionError(f"[24 swin] stage {stage} {key}: the "
+                                     f"kernel is {worst / top:.3e} of max "
+                                     f"|ref| off float64")
+    return errs
+
+
+def phase_swin(dev):
+    """Phase 24: the window attention kernel at the served stage shapes,
+    then a Swin-B bundle through the daemon. Returns the kernels-line
+    record (the stage-1 shifted shape's times first) and the launches of
+    the served path."""
+    from protoasnet_tpu_torch import server
+    from protoasnet_tpu_torch.experiments import window_attn as exp
+    from protoasnet_tpu_torch.models.backbones import swin3d
+    from protoasnet_tpu_torch.models.builder import build_model
+    from protoasnet_tpu_torch.ops import window_attn
+    from protoasnet_tpu_torch.ops.window_attn_cuda import window_attn_cuda
+    from protoasnet_tpu_torch.serve import (load_serving_bundle,
+                                            make_serving_fn,
+                                            save_serving_bundle)
+
+    stages = []
+    for stage in exp.STAGES:
+        errs = _swin_stage_checks(dev, stage)
+        for shifted in (False, True):
+            r = exp._stage(stage, SWIN_BATCH, shifted, 2, dev)
+            stages.append(dict(stage=stage, shifted=shifted,
+                               max_rel_err=errs, ms=r["kernel_ms"],
+                               device_ms=r["device_ms"],
+                               plain_ms=r["plain_ms"],
+                               library_ms=r["library_ms"],
+                               bound_ms=r["bound_ms"],
+                               bound_by=r["bound_by"]))
+            log(f"[24 swin] stage {stage} {'shifted' if shifted else 'plain'}"
+                f" at {SWIN_BATCH}: kernel {r['kernel_ms']:.4f} ms (device "
+                f"{r['device_ms']:.4f}), bound {r['bound_ms']:.4f} "
+                f"({r['bound_by']}), plain {r['plain_ms']:.3f}, library "
+                f"{r['library_ms']:.3f}; vs float64 {errs}")
+        torch.cuda.empty_cache()
+
+    mcfg = json.loads(SWIN_CONFIG.read_text())
+    model = build_model(mcfg, device="cpu", seed=0)
+    sample = (int(mcfg["frames"]), int(mcfg["img_size"]),
+              int(mcfg["img_size"]), 3)
+    rng = np.random.default_rng(24)
+    xs = [rng.integers(0, 256, size=(n, *sample[:3]), dtype=np.uint8)
+          for n in SWIN_REQUESTS]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "swin_bundle.zip")
+        save_serving_bundle(path, model, mcfg, sample, uint8_gray=True)
+        window_attn_cuda.launches = 0
+        with _serving(server.serve_forever, path, max_batch=SWIN_BATCH,
+                      max_delay_ms=5.0, warmup=True, device=dev) as url:
+            outs = [_post(url, x) for x in xs]
+            with urllib.request.urlopen(url + "/v1/stats", timeout=30) as r:
+                stats = json.loads(r.read())
+        launches = window_attn_cuda.launches
+        batches = len(server._bucket_ladder(SWIN_BATCH)) + stats["batches"]
+        blocks = sum(isinstance(m, swin3d.ShiftedWindowAttention3d)
+                     for m in model.modules())  # 22 in swin3d_b cut at -3
+        if launches != blocks * batches:
+            raise AssertionError(f"[24 swin] {launches} kernel launches for "
+                                 f"{batches} batches (warm-up and served); "
+                                 f"{blocks} a batch expected")
+        direct = load_serving_bundle(path, device=dev)
+        model.to(dev)
+        fused = swin3d.window_attention
+
+        def plain(qkv, table, index, heads, window, shift, table_window):
+            return window_attn.window_attention_torch(qkv, table, index,
+                                                      heads, window, shift)
+
+        worst, d_plain = 0.0, 0.0
+        for x, out in zip(xs, outs):
+            n = len(x)
+            if out.shape != (n, int(mcfg["num_classes"])) or \
+                    not np.isfinite(out).all():
+                raise AssertionError(f"[24 swin] served logits {out.shape}")
+            bucket = next(b for b in server._bucket_ladder(SWIN_BATCH)
+                          if b >= n)
+            xp = np.zeros((bucket, *sample[:3]), np.uint8)
+            xp[:n] = x
+            worst = max(worst, float(np.abs(out - direct(xp)[:n]).max()))
+            swin3d.window_attention = plain
+            try:
+                ref = make_serving_fn(model, uint8_gray=True)(x)
+            finally:
+                swin3d.window_attention = fused
+            d_plain = max(d_plain, float(np.abs(out - ref).max()
+                                         / max(np.abs(ref).max(), 1.0)))
+    log(f"[24 swin] served {SWIN_REQUESTS} clips at max_batch {SWIN_BATCH}: "
+        f"{stats['batches']} batches + the warm-up's "
+        f"{len(server._bucket_ladder(SWIN_BATCH))}, window_attn_cuda "
+        f"launches {launches} ({blocks} a batch); served vs direct "
+        f"{worst:.3e}, vs the plain route {d_plain:.3e} of max(1, "
+        f"|logits|)")
+    if worst > 1e-3 or d_plain > 5e-2:
+        raise AssertionError(f"[24 swin] served logits: vs direct {worst}, "
+                             f"vs the plain route {d_plain}")
+    del model, direct
+    torch.cuda.empty_cache()
+    head = next(r for r in stages if r["stage"] == 1 and r["shifted"])
+    return dict(head, stages=stages), launches
+
+
 def _record(r):
     return {k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                               "bound_by", "library_ms")}
@@ -3715,12 +3871,13 @@ def main() -> int:
 
 
 def _phases(dev, card: str, cfgs, work: Path) -> int:
-    """Phases 1-23; the training runs stay under ``work`` for 13-23."""
+    """Phases 1-24; the training runs stay under ``work`` for 13-23."""
     t_start = time.monotonic()
     from protoasnet_tpu_torch.ops import fused_c2p1d_cuda as fused_mod
     from protoasnet_tpu_torch.ops import l2_min_cuda as l2_mod
     from protoasnet_tpu_torch.ops import roi_cosine_cuda as roi_mod
     from protoasnet_tpu_torch.ops import temporal_conv_cuda as temporal_mod
+    from protoasnet_tpu_torch.ops import window_attn_cuda as swin_mod
 
     phase_build()
     head = phase_head(dev, HEAD, "video")
@@ -3813,7 +3970,10 @@ def _phases(dev, card: str, cfgs, work: Path) -> int:
     tool_records = phase_tool_kernels(dev)
     launches["roi_cosine_cuda"] += phase_tools(dev, train_counts, work,
                                                rates[VIDEO["label"]][128])
-    log(f"[smoke] phases 1-23 took {time.monotonic() - t_start:.1f}s")
+    # the Swin trunk: its kernel at the served shapes, then its served path
+    # with the kernel's count set to 0 just before it and read just after
+    swin, launches["window_attn_cuda"] = phase_swin(dev)
+    log(f"[smoke] phases 1-24 took {time.monotonic() - t_start:.1f}s")
     print(card)
     print(json.dumps({"kernels": [
         dict(name="roi_cosine_cuda", route="cuda", source=roi_mod.SOURCE,
@@ -3834,6 +3994,9 @@ def _phases(dev, card: str, cfgs, work: Path) -> int:
              replaces=fused_mod.REPLACES,
              launches=launches["fused_c2p1d_cuda"],
              **_record(runs[RECORDS["fused_c2p1d_cuda"]])),
+        dict(name="window_attn_cuda", route="cuda", source=swin_mod.SOURCE,
+             replaces=swin_mod.REPLACES,
+             launches=launches["window_attn_cuda"], **swin),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,10 @@
-"""Backbone zoo and factory, the JAX package's ``BACKBONE_NAMES``: the
+"""Backbone zoo and factory: the JAX package's ``BACKBONE_NAMES`` (the
 flagship's R(2+1)D-18 video trunk (with ``remat``, its blocks checkpointed
 in training), the plain r3d_18 video trunk, and the 2-D ResNet
 (18/34/50/101/152), DenseNet (121/161/169/201) and VGG (11/13/16/19, with
-and without BatchNorm) trunks."""
+and without BatchNorm) trunks), and the port's own Video Swin-B trunk,
+``swin3d_b`` (channels-last; ``swin3d.py``), which the JAX package does
+not have."""
 
 from protoasnet_tpu_torch.models.backbones.densenet import (DENSENET_SPECS,
                                                             DenseNetFeatures)
@@ -10,11 +12,14 @@ from protoasnet_tpu_torch.models.backbones.r2plus1d import R2Plus1D18
 from protoasnet_tpu_torch.models.backbones.r3d import R3D18
 from protoasnet_tpu_torch.models.backbones.resnet2d import (RESNET_SPECS,
                                                             ResNetFeatures)
+from protoasnet_tpu_torch.models.backbones.swin3d import (SWIN3D_SPECS,
+                                                          SwinTransformer3d)
 from protoasnet_tpu_torch.models.backbones.vgg import VGG_CFGS, VGGFeatures
 
 __all__ = ["make_backbone", "BACKBONE_NAMES", "R2Plus1D18", "R3D18",
            "ResNetFeatures", "DenseNetFeatures", "VGGFeatures",
-           "RESNET_SPECS", "DENSENET_SPECS", "VGG_CFGS"]
+           "SwinTransformer3d", "RESNET_SPECS", "DENSENET_SPECS",
+           "VGG_CFGS", "SWIN3D_SPECS"]
 
 BACKBONE_NAMES = (
     tuple(RESNET_SPECS)
@@ -22,14 +27,19 @@ BACKBONE_NAMES = (
     + tuple(VGG_CFGS)
     + tuple(f"{v}_bn" for v in VGG_CFGS)
     + ("resnet2p1d_18", "r3d_18")
+    + tuple(SWIN3D_SPECS)
 )
 
 
 def make_backbone(name: str, last_layer_num: int = -3, remat: bool = False):
     """Architecture name -> trunk module (with ``.out_channels`` and, for
     the 2-D trunks, ``.conv_info()``). ``last_layer_num`` cuts the video
-    trunks and ``remat`` checkpoints R(2+1)D's blocks; the other trunks
-    ignore them, as the JAX package's do."""
+    trunks (a Swin3D trunk at -3 or -2 only) and ``remat`` checkpoints
+    R(2+1)D's blocks; the other trunks ignore them, as the JAX package's
+    do."""
+    if name in SWIN3D_SPECS:
+        return SwinTransformer3d(**SWIN3D_SPECS[name],
+                                 last_layer_num=last_layer_num)
     if name == "resnet2p1d_18":
         return R2Plus1D18(last_layer_num=last_layer_num, remat=remat)
     if name == "r3d_18":

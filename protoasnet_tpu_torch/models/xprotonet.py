@@ -9,10 +9,11 @@ Forward contract, as the JAX package's ``XProtoNet``:
                            positions
 
 Inputs are channels-last: clips (N, T, H, W, 3) for a video trunk, images
-(N, H, W, 3) for a 2-D trunk. The trunk runs channels-first (NCDHW or
-NCHW); its output is permuted once to channels-last, so the head layers
-are Linears over channels and the occurrence map comes back channels-last
-(N, [T',] H', W', P).
+(N, H, W, 3) for a 2-D trunk. A convolutional trunk runs channels-first
+(NCDHW or NCHW), its output permuted once to channels-last; a trunk that
+is channels-last by nature (the Video Swin trunk, ``channels_last``) takes
+the input as it is. So the head layers are Linears over channels and the
+occurrence map comes back channels-last (N, [T',] H', W', P).
 
 ``dtype=torch.bfloat16`` runs the convs and Linears under bf16 autocast
 (BatchNorm statistics stay fp32); the prototype head takes the bf16
@@ -83,8 +84,11 @@ class XProtoNet(nn.Module):
         """The JAX package's init, drawn from ``generator`` (a CPU
         generator; call before moving the model to the card): kaiming-normal
         fan-out convs and Linears, zero biases, unit BN, U(0,1) prototypes,
-        readout at incorrect-connection strength 0."""
+        readout at incorrect-connection strength 0; a trunk with its own
+        ``reset_parameters`` (Swin3D: torchvision's) then draws its own."""
         init_weights_(self, generator)
+        if hasattr(self.cnn_backbone, "reset_parameters"):
+            self.cnn_backbone.reset_parameters(generator)  # its own init
         self.prototype_vectors.uniform_(0.0, 1.0, generator=generator)
         self.last_layer.reset_incorrect_connection(0.0)
 
@@ -94,6 +98,8 @@ class XProtoNet(nn.Module):
     def _features(self, x: torch.Tensor) -> torch.Tensor:
         """(N, [T,] H, W, 3) -> channels-last trunk output
         (N, [T',] H', W', C)."""
+        if getattr(self.cnn_backbone, "channels_last", False):
+            return self.cnn_backbone(x)
         nd = x.dim()
         fmap = self.cnn_backbone(x.permute(0, nd - 1, *range(1, nd - 1)))
         return fmap.permute(0, *range(2, nd), 1).contiguous()

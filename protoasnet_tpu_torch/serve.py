@@ -111,11 +111,16 @@ def save_serving_bundle(path: str, model: torch.nn.Module,
 def _device_forward(model: torch.nn.Module, uint8_gray: bool = False
                     ) -> Callable[[torch.Tensor], torch.Tensor]:
     """A batch already on ``model``'s device, in the bundle's input dtype
-    -> logits on the device; the caller holds the grad mode. A float
-    R(2+1)D model serves through its copy laid out for cuDNN
-    (``models/aligned.py``), built here once, on the batch as that copy's
-    stem takes it; each such forward counts ``serve.aligned_trunk`` on the
-    innermost span open (the daemon's ``batcher.batch``)."""
+    -> logits on the device; the caller holds the grad mode.
+
+    Which copy serves: a float R(2+1)D model serves through its copy laid
+    out for cuDNN (``models/aligned.py``), built here once, on the batch as
+    that copy's stem takes it; each such forward counts
+    ``serve.aligned_trunk`` on the innermost span open (the daemon's
+    ``batcher.batch``). Every other model serves through ``model`` itself:
+    a Video Swin model under its bf16 autocast with the fused window
+    attention kernel (each block's attention counts ``swin.window_attn``
+    there), an int8 model, the image models and the other video trunks."""
     served = aligned_serving_model(model)
 
     def forward(xt: torch.Tensor) -> torch.Tensor:
@@ -132,8 +137,12 @@ def _device_forward(model: torch.nn.Module, uint8_gray: bool = False
 
 def make_serving_fn(model: torch.nn.Module, uint8_gray: bool = False
                     ) -> Callable[[np.ndarray], np.ndarray]:
-    """numpy clips or images -> numpy float32 logits through ``model`` on
-    its device."""
+    """numpy clips or images -> numpy float32 logits on ``model``'s device,
+    through the copy ``_device_forward`` picks: for a float R(2+1)D model,
+    the aligned copy made here, whose trunk is a snapshot of ``model``'s
+    trunk as it is now (its head modules are ``model``'s own), so a trunk
+    weight or attribute changed on ``model`` later does not reach it; for
+    every other model, ``model`` itself."""
     return make_sharded_serving_fn(
         model, [next(model.parameters()).device], uint8_gray)
 

@@ -44,6 +44,7 @@ import numpy as np
 import torch
 
 from protoasnet_tpu_torch.losses.bundle import LossBundle
+from protoasnet_tpu_torch.models.backbones.swin3d import refuse_swin
 from protoasnet_tpu_torch.models.layers import prototype_class_identity
 from protoasnet_tpu_torch.parallel.mesh import (gather_rows, is_main,
                                                 replicate)
@@ -228,6 +229,7 @@ class _XProtoNetAgentCommon(BaseAgent):
         return summary["accuracy"], summary["f1_mean"], summary["AUC"]
 
     def push(self, replace_prototypes: bool = True) -> None:
+        refuse_swin(self.model, "the prototype push (and explain_global)")
         p = self.model.prototype_vectors.shape[0]
         new_vectors, _ = push_prototypes(
             self.data_loaders["train_push"], self.push_step,
@@ -276,6 +278,7 @@ class _XProtoNetAgentCommon(BaseAgent):
     def explain_local(self, mode: str = "test") -> Dict[str, Any]:
         from protoasnet_tpu_torch.explain.local import explain_local
 
+        refuse_swin(self.model, "explain_local")
         return explain_local(self, mode=mode)
 
     def explain_global(self, mode: str = "test") -> None:

@@ -211,6 +211,22 @@ def test_other_models_serve_without_a_copy(monkeypatch, kind):
     assert built == [1]
 
 
+def test_the_serving_copy_snapshots_the_trunk():
+    """``make_serving_fn``'s rule: a float R(2+1)D model's trunk is copied
+    when the function is made, its head is the model's own, so a later
+    change reaches the served logits through the head only."""
+    model = _model()
+    fn = make_serving_fn(model)
+    x = _wire(False, 2, (32, 32), seed=8)
+    before = fn(x)
+    with torch.no_grad():
+        model.cnn_backbone.stem_spatial.weight.mul_(2.0)
+    np.testing.assert_array_equal(fn(x), before)
+    with torch.no_grad():
+        model.last_layer.Dense_0.weight.mul_(2.0)
+    np.testing.assert_allclose(fn(x), 2.0 * before, rtol=1e-6, atol=1e-6)
+
+
 def test_counter_counts_one_per_served_batch_while_tracing():
     profiling.reset()
     b = server.DynamicBatcher(make_serving_fn(_model()), max_batch=2,
