@@ -9,8 +9,8 @@ reference's ``.pth`` both ways, the flagship served as w8a8 int8, and the
 last trunks (r3d_18, VGG, DenseNet), data parallelism through
 ``torch.distributed.run``, prototype tensor parallelism, and the repo's
 measuring tools (the headline bench, serving latency, daemon load, int8
-accuracy), and the Video Swin-B trunk's window attention kernel and its
-served path.
+accuracy), the Video Swin-B trunk's window attention kernel and its
+served path, and the served R(2+1)D trunk's conv epilogue kernel.
 
     python3 chip_smoke.py
 
@@ -235,7 +235,19 @@ raises and the script exits non-zero without printing a result):
    launches`` set to 0 just before and read just after: 22 a batch, the
    warm-up's buckets and the served batches; the served logits against a
    direct forward of the same padded batch and against the model with
-   the plain route in the kernel's place.
+   the plain route in the kernel's place;
+25. the served R(2+1)D trunk's conv epilogue: (a) ``conv_epilogue_cuda``
+   against its plain route run in fp32 at each distinct (C, T, H·W) of
+   the flagship's served trunk at batch 128, with and without a residual,
+   bf16 (within one bf16 ulp) and fp32 (exactly), each timed (CUDA
+   events: the wrapper call back to back, the plain route) beside its
+   byte bound; (b) the bf16 flagship served at batch 128 by
+   ``serve.make_serving_fn`` (the main path's ``_device_forward`` and its
+   folded copy) with ``conv_epilogue_cuda.launches`` set to 0 just before
+   and read just after (26 a forward), its logits against a folded copy
+   built by hand with the plain route in the kernel's place and against
+   the model's own forward, and that copy's forward timed through each
+   route.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or of the JAX
@@ -264,7 +276,8 @@ import torch
 # the bounds use the H100's published peaks (HBM3 bytes/s; FLOP/s for the
 # input dtype at fp32 accuracy: bf16 on the tensor cores, fp32 as 3xTF32 on
 # them); fp32 references run with TF32 off
-from protoasnet_tpu_torch.experiments.common import BATCH, TOL
+from protoasnet_tpu_torch.experiments.common import (BATCH,
+                                                     HBM_BYTES_PER_S, TOL)
 from protoasnet_tpu_torch.experiments.common import bound_ms as _bound
 from protoasnet_tpu_torch.experiments.common import (card_line, max_rel_err,
                                                      no_tf32)
@@ -272,7 +285,7 @@ from protoasnet_tpu_torch.experiments.common import (card_line, max_rel_err,
 REPO = Path(__file__).resolve().parent
 CONFIGS = REPO / "protoasnet_tpu" / "configs"
 SOURCES = ("roi_cosine.cu", "l2_min.cu", "temporal_conv.cu",
-           "fused_c2p1d.cu", "window_attn.cu")
+           "fused_c2p1d.cu", "window_attn.cu", "conv_epilogue.cu")
 # the three served models: config, per-sample input, what a sample is
 VIDEO = dict(label="video flagship", config="ours_protoasnet_video.yml",
              sample=(32, 112, 112, 3), unit="clips")
@@ -3846,6 +3859,154 @@ def phase_swin(dev):
     return dict(head, stages=stages), launches
 
 
+EPILOGUE_BATCH = 128  # the daemon's default max_batch, the cells' bucket
+EPILOGUE_CHUNK = 16  # clips a plain-route reference call
+
+
+def _epilogue_calls(dev, cfg):
+    """The bf16 flagship's served copy on the card and the (C, T, H·W,
+    residual) of each of its epilogues, in order, from one clip."""
+    from protoasnet_tpu_torch.models import aligned
+    from protoasnet_tpu_torch.models.builder import build_model
+
+    model = build_model(dict(cfg["model"], dtype="bfloat16"), device=dev,
+                        seed=0).eval()
+    served = aligned.aligned_serving_model(model)
+    calls = []
+
+    def record(mod, inp, out):
+        y = inp[0]
+        calls.append((y.shape[1], y.shape[2], y.shape[3] * y.shape[4],
+                      len(inp) > 1 and inp[1] is not None))
+
+    handles = [m.register_forward_hook(record)
+               for m in served.cnn_backbone.modules()
+               if isinstance(m, aligned._Epilogue)]
+    with torch.inference_mode():
+        x = torch.zeros((1, *CLIP), device=dev)
+        served(aligned.aligned_input(x, torch.bfloat16))
+    for h in handles:
+        h.remove()
+    return model, served, calls
+
+
+def phase_conv_epilogue(dev, cfg):
+    """Phase 25: the conv epilogue kernel at every distinct served shape,
+    then the flagship's served copy through it. Returns the kernels-line
+    record and the launches of the served forwards."""
+    from protoasnet_tpu_torch.experiments.common import time_ms as events_ms
+    from protoasnet_tpu_torch.models import aligned
+    from protoasnet_tpu_torch.ops import conv_epilogue_cuda as epi
+
+    model, served, calls = _epilogue_calls(dev, cfg)
+    if len(calls) != 26:
+        raise AssertionError(f"[25 epilogue] {len(calls)} epilogues a "
+                             f"forward, 26 expected")
+    n = EPILOGUE_BATCH
+    g = torch.Generator(device=dev).manual_seed(25)
+    shapes, timed = [], {}
+    for c, t, hw, _ in sorted(set(calls)):
+        if (c, t, hw) in {s["shape"][:3] for s in shapes}:
+            continue
+        for dtype in (torch.bfloat16, torch.float32):
+            for residual in (False, True):
+                shape = (n, c, t, hw, 1)
+                cl = torch.channels_last_3d
+                x = torch.randn(shape, device=dev, generator=g).to(
+                    dtype).contiguous(memory_format=cl)
+                b = torch.randn(c, device=dev, generator=g)
+                r = torch.randn(shape, device=dev, generator=g).to(
+                    dtype).contiguous(memory_format=cl) if residual else None
+                with torch.inference_mode():
+                    got = epi.conv_epilogue_cuda(x.clone(memory_format=cl),
+                                                 b, r)
+                    bad = 0
+                    for i in range(0, n, EPILOGUE_CHUNK):
+                        part = slice(i, i + EPILOGUE_CHUNK)
+                        ref = epi.conv_epilogue_torch(
+                            x[part].float(), b,
+                            None if r is None else r[part].float())
+                        if dtype == torch.float32:
+                            bad += int((got[part] != ref).sum())
+                        else:  # one bf16 ulp: 2^(exponent - 7)
+                            e = torch.floor(torch.log2(
+                                ref.abs().clamp_min(2.0 ** -126)))
+                            bad += int(((got[part].float() - ref).abs()
+                                        > torch.exp2(e - 7)).sum())
+                    ref = got = e = None
+                    if bad:
+                        raise AssertionError(
+                            f"[25 epilogue] C={c} T={t} HW={hw} {dtype} "
+                            f"residual={residual}: {bad} elements off the "
+                            f"plain route")
+                    ms = events_ms(lambda: epi.conv_epilogue_cuda(x, b, r))
+                    plain = events_ms(lambda: epi.conv_epilogue_torch(x, b,
+                                                                      r))
+                bound = epi.bytes_moved(x.numel(), x.element_size(), c,
+                                        residual) / HBM_BYTES_PER_S * 1e3
+                key = (c, t, hw, residual, dtype == torch.bfloat16)
+                timed[key] = ms
+                shapes.append(dict(shape=(c, t, hw), residual=residual,
+                                   dtype=str(dtype)[6:], ms=ms,
+                                   bound_ms=bound, plain_ms=plain))
+                log(f"[25 epilogue] N={n} C={c} T={t} HW={hw} "
+                    f"{str(dtype)[6:]} {'+r' if residual else '  '}: "
+                    f"kernel {ms:.4f} ms, bound {bound:.4f} "
+                    f"({100 * bound / ms:.1f}%), plain {plain:.4f}")
+                del x, r
+                torch.cuda.empty_cache()
+    # the served forward's 26 epilogues at batch 128, bf16
+    total = sum(timed[(c, t, hw, res, True)] for c, t, hw, res in calls)
+    total_bound = sum(epi.bytes_moved(n * c * t * hw, 2, c, res)
+                      for c, t, hw, res in calls) / HBM_BYTES_PER_S * 1e3
+    log(f"[25 epilogue] a served forward's 26 epilogues at {n}, bf16: "
+        f"{total:.3f} ms ({total / n:.4f} ms a clip), bound "
+        f"{total_bound:.3f} ({100 * total_bound / total:.1f}%)")
+
+    # the launch count from the main path: serve.py's serving function
+    # (its _device_forward builds its own folded copy); the copy built
+    # above, run by hand, for the plain-route comparison and the timings
+    from protoasnet_tpu_torch.serve import make_serving_fn
+
+    rng = np.random.default_rng(25)
+    xn = rng.normal(size=(n, *CLIP)).astype(np.float32)
+    x = torch.from_numpy(xn).to(dev)
+    xa = aligned.aligned_input(x, torch.bfloat16)
+    serving = make_serving_fn(model)
+    epi.conv_epilogue_cuda.launches = 0
+    logits = torch.from_numpy(serving(xn)).to(dev)
+    launches = epi.conv_epilogue_cuda.launches
+    with torch.inference_mode():
+        fwd_ms = events_ms(lambda: served(xa))
+        fused = aligned.conv_epilogue
+        aligned.conv_epilogue = epi.conv_epilogue_torch
+        try:
+            plain_logits = served(xa)[0].float()
+            plain_ms = events_ms(lambda: served(xa))
+        finally:
+            aligned.conv_epilogue = fused
+        direct = model(x)[0].float()
+    if launches != 26:
+        raise AssertionError(f"[25 epilogue] {launches} launches in one "
+                             f"served forward, 26 expected")
+    top = max(1.0, direct.abs().max().item())
+    d_plain = (logits - plain_logits).abs().max().item() / top
+    d_direct = (logits - direct).abs().max().item() / top
+    log(f"[25 epilogue] served at {n}, bf16 (make_serving_fn): {launches} "
+        f"launches; the copy's forward {fwd_ms:.2f} ms through the kernel, "
+        f"{plain_ms:.2f} through the plain route; served logits vs the "
+        f"plain route {d_plain:.3e}, vs the model's own forward "
+        f"{d_direct:.3e} of max(1, |logits|)")
+    if d_plain > 1e-3 or d_direct > 5e-2:
+        raise AssertionError(f"[25 epilogue] served logits: vs the plain "
+                             f"route {d_plain}, vs the model {d_direct}")
+    del model, served, serving, x, xa
+    torch.cuda.empty_cache()
+    return dict(shapes=shapes, forward_epilogue_ms=total,
+                forward_epilogue_bound_ms=total_bound, forward_ms=fwd_ms,
+                forward_plain_ms=plain_ms), launches
+
+
 def _record(r):
     return {k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                               "bound_by", "library_ms")}
@@ -3871,8 +4032,9 @@ def main() -> int:
 
 
 def _phases(dev, card: str, cfgs, work: Path) -> int:
-    """Phases 1-24; the training runs stay under ``work`` for 13-23."""
+    """Phases 1-25; the training runs stay under ``work`` for 13-23."""
     t_start = time.monotonic()
+    from protoasnet_tpu_torch.ops import conv_epilogue_cuda as epi_mod
     from protoasnet_tpu_torch.ops import fused_c2p1d_cuda as fused_mod
     from protoasnet_tpu_torch.ops import l2_min_cuda as l2_mod
     from protoasnet_tpu_torch.ops import roi_cosine_cuda as roi_mod
@@ -3973,7 +4135,12 @@ def _phases(dev, card: str, cfgs, work: Path) -> int:
     # the Swin trunk: its kernel at the served shapes, then its served path
     # with the kernel's count set to 0 just before it and read just after
     swin, launches["window_attn_cuda"] = phase_swin(dev)
-    log(f"[smoke] phases 1-24 took {time.monotonic() - t_start:.1f}s")
+    # the served R(2+1)D trunk's conv epilogue: the kernel at its shapes,
+    # then the served copy with the count set to 0 just before it and read
+    # just after
+    epilogue, launches["conv_epilogue_cuda"] = phase_conv_epilogue(
+        dev, cfgs[VIDEO["label"]])
+    log(f"[smoke] phases 1-25 took {time.monotonic() - t_start:.1f}s")
     print(card)
     print(json.dumps({"kernels": [
         dict(name="roi_cosine_cuda", route="cuda", source=roi_mod.SOURCE,
@@ -3997,6 +4164,9 @@ def _phases(dev, card: str, cfgs, work: Path) -> int:
         dict(name="window_attn_cuda", route="cuda", source=swin_mod.SOURCE,
              replaces=swin_mod.REPLACES,
              launches=launches["window_attn_cuda"], **swin),
+        dict(name="conv_epilogue_cuda", route="cuda", source=epi_mod.SOURCE,
+             replaces=epi_mod.REPLACES,
+             launches=launches["conv_epilogue_cuda"], **epilogue),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

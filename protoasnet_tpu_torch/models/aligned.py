@@ -9,7 +9,7 @@ channel counts, with ``cudnn.benchmark`` too; cuDNN put a layout and a dtype
 conversion around each of those and an NCDHW <-> NDHWC pair around every
 other conv (``PERF.md`` §5). ``aligned_serving_model(model)`` returns a
 serving copy of an ``XProtoNet`` whose trunk is an ``R2Plus1D18`` (and
-holds no ``QuantConv``), with the trunk rebuilt, exactly:
+holds no ``QuantConv``), with the trunk rebuilt:
 
 * every weight and activation is ``channels_last_3d``: the wire's (N, T, H,
   W, C) batch enters permuted as a view and the trunk's output permutes
@@ -24,29 +24,41 @@ holds no ``QuantConv``), with the trunk rebuilt, exactly:
   the 3-channel conv padded to 8 channels on an H100 (``PERF.md`` §6);
 * each other channel count rounds up to a multiple of 8 (the mid-planes
   45, 230 and 460 to 48, 232 and 464): the conv that produces a padded
-  channel gets a zero weight row for it, the conv that consumes it a zero
-  weight column, and the BatchNorm between them mean 0, variance 1, weight
-  1 and bias 0 there, so the channel is exactly 0 after BN and ReLU and
-  adds exactly 0 downstream.
+  channel gets a zero weight row and a zero bias for it, the conv that
+  consumes it a zero weight column, so the channel is exactly 0 after the
+  epilogue and adds exactly 0 downstream;
+* each eval BatchNorm is folded, once, into the conv before it: with s =
+  γ / sqrt(var + eps), the conv's weight becomes w·s per output channel
+  and the shift β − μ·s a per-channel bias held beside it (in fp32, from
+  the model's fp32 weights and running statistics), the downsample
+  BatchNorm's shift added to the block's second one. The convs stay
+  bias-free, so cuDNN runs the same conv shapes; what is left after each
+  conv is one pass, ``relu(y + bias (+ residual))``
+  (``ops/conv_epilogue_cuda.py``: a hand-written CUDA kernel in place on
+  the card, else the plain route), 26 a forward: 2 in the stem and 2 in
+  each (2+1)D conv. The copy holds no BatchNorm. The same mathematics,
+  rounded elsewhere: in fp32 the logits move by ~1e-7.
 
 The copy is eval-only and takes no gradient. It shares the model's head
-modules; the model keeps the upstream shapes, so training (which writes the
-running statistics of the real channels), the int8 path (which swaps the
-trunk's convs) and the bundle, checkpoint and weight importers never see
-it. ``serve.py::_device_forward`` builds it once per device.
+modules; the model keeps the upstream shapes and its BatchNorms, so
+training (which writes the running statistics of the real channels), the
+int8 path (which swaps the trunk's convs) and the bundle, checkpoint and
+weight importers never see it. ``serve.py::_device_forward`` builds it
+once per device.
 """
 
 from __future__ import annotations
 
 import copy
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from protoasnet_tpu_torch.models.backbones.r2plus1d import (Conv2Plus1D,
-                                                            R2Plus1D18)
+from protoasnet_tpu_torch.models.backbones.r2plus1d import (
+    BasicBlock2Plus1D, Conv2Plus1D, R2Plus1D18)
+from protoasnet_tpu_torch.ops.conv_epilogue_cuda import conv_epilogue
 from protoasnet_tpu_torch.quant import QuantConv
 
 __all__ = ["aligned_trunk", "aligned_serving_model", "aligned_input"]
@@ -71,28 +83,99 @@ class _TemporalConv(nn.Conv3d):
         return y.unflatten(3, x.shape[3:])
 
 
+class _Epilogue(nn.Module):
+    """``relu(y + bias (+ residual))`` after a conv whose BatchNorm was
+    folded into it: ``bias`` is the BatchNorm's shift (fp32)."""
+
+    def __init__(self, bias: torch.Tensor):
+        super().__init__()
+        self.register_buffer("bias", bias)
+
+    def forward(self, y: torch.Tensor,
+                residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return conv_epilogue(y, self.bias, residual)
+
+
+class _ServedConv2Plus1D(nn.Module):
+    """conv -> epilogue -> conv -> epilogue: a (2+1)D conv with the
+    BatchNorm after each of its convs folded in (the stem too)."""
+
+    def __init__(self, spatial: nn.Conv3d, mid: _Epilogue,
+                 temporal: nn.Conv3d, out: _Epilogue):
+        super().__init__()
+        self.spatial, self.mid = spatial, mid
+        self.temporal, self.out = temporal, out
+
+    def forward(self, x: torch.Tensor,
+                residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return self.out(self.temporal(self.mid(self.spatial(x))), residual)
+
+
+class _ServedBlock(nn.Module):
+    """A basic block whose second (2+1)D conv ends in the residual sum."""
+
+    def __init__(self, conv1: _ServedConv2Plus1D, conv2: _ServedConv2Plus1D,
+                 downsample_conv: Optional[nn.Conv3d]):
+        super().__init__()
+        self.conv1, self.conv2 = conv1, conv2
+        self.downsample_conv = downsample_conv
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        residual = x if self.downsample_conv is None \
+            else self.downsample_conv(x)
+        return self.conv2(self.conv1(x), residual)
+
+
+class _ServedTrunk(nn.Module):
+    """The served R(2+1)D trunk: (N, C, T, H, W) channels-last ->
+    (N, C', T', H', W') channels-last."""
+
+    def __init__(self, stem: _ServedConv2Plus1D, blocks, out_channels: int):
+        super().__init__()
+        self.stem = stem
+        self.layer_names = [name for name, _ in blocks]
+        for name, block in blocks:
+            self.add_module(name, block)
+        self.out_channels = out_channels
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.stem(x)
+        for name in self.layer_names:
+            x = getattr(self, name)(x)
+        return x
+
+
+def _fold(conv: nn.Conv3d, bn: nn.BatchNorm3d
+          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The eval ``bn`` after ``conv`` folded into it: (w·s, β − μ·s), s = γ
+    / sqrt(var + eps) per output channel, in fp32 (or the weight's wider
+    dtype)."""
+    dt = torch.promote_types(conv.weight.dtype, torch.float32)
+    s = bn.weight.detach().to(dt) / torch.sqrt(
+        bn.running_var.to(dt) + bn.eps)
+    w = conv.weight.detach().to(dt) * s.view(-1, 1, 1, 1, 1)
+    return w, bn.bias.detach().to(dt) - bn.running_mean.to(dt) * s
+
+
 def _padded_conv(w: torch.Tensor, cin: int, cout: int, stride,
                  padding) -> nn.Conv3d:
-    """A conv (a ``_TemporalConv`` for a (k,1,1) kernel) holding ``w`` in
-    its first rows and columns, zeros elsewhere."""
-    kind = _TemporalConv if tuple(w.shape[3:]) == (1, 1) else nn.Conv3d
-    out = kind(cin, cout, tuple(w.shape[2:]), stride=stride,
-               padding=padding, bias=False, device=w.device, dtype=w.dtype)
+    """A conv (a ``_TemporalConv`` for a (k,1,1) kernel, k > 1) holding
+    ``w`` in its first rows and columns, zeros elsewhere."""
+    temporal = tuple(w.shape[3:]) == (1, 1) and w.shape[2] > 1
+    out = (_TemporalConv if temporal else nn.Conv3d)(
+        cin, cout, tuple(w.shape[2:]), stride=stride, padding=padding,
+        bias=False, device=w.device, dtype=w.dtype)
     with torch.no_grad():
         out.weight.zero_()
         out.weight[:w.shape[0], :w.shape[1]].copy_(w)
     return out
 
 
-def _padded_bn(bn: nn.BatchNorm3d, c: int) -> nn.BatchNorm3d:
-    # a fresh BatchNorm holds mean 0, variance 1, weight 1 and bias 0
-    out = nn.BatchNorm3d(c, eps=bn.eps, momentum=bn.momentum,
-                         device=bn.weight.device)
-    n = bn.num_features
-    with torch.no_grad():
-        for name in ("running_mean", "running_var", "weight", "bias"):
-            getattr(out, name)[:n].copy_(getattr(bn, name))
-    return out
+def _epilogue(shift: torch.Tensor, c: int) -> _Epilogue:
+    """The shift in the first of ``c`` channels, zeros after."""
+    bias = shift.new_zeros(c)
+    bias[:len(shift)] = shift
+    return _Epilogue(bias)
 
 
 def _s2d_weight(w: torch.Tensor) -> torch.Tensor:
@@ -104,24 +187,55 @@ def _s2d_weight(w: torch.Tensor) -> torch.Tensor:
     return w.permute(0, 4, 6, 1, 2, 3, 5).reshape(o, 4 * c, 1, 4, 4)
 
 
-def aligned_trunk(trunk: R2Plus1D18) -> R2Plus1D18:
-    """An eval-only copy of ``trunk`` that takes ``aligned_input``'s
-    batches (permuted to (N, C, T, H, W)), laid out as the module says."""
-    t = copy.deepcopy(trunk)
-    stem = t.stem_spatial
-    s2d = _padded_conv(_s2d_weight(stem.weight), _up(4 * stem.in_channels),
-                       _up(stem.out_channels), 1, 0)
-    pairs = [(t, "stem_spatial", "stem_bn1", "stem_temporal", s2d)]
-    pairs += [(m, "spatial", "bn_mid", "temporal", None) for m in t.modules()
-              if isinstance(m, Conv2Plus1D)]
-    for owner, first, bn, second, new in pairs:
-        a, b = getattr(owner, first), getattr(owner, second)
-        mid = _up(a.out_channels)
-        setattr(owner, first, new or _padded_conv(
-            a.weight.detach(), a.in_channels, mid, a.stride, a.padding))
-        setattr(owner, bn, _padded_bn(getattr(owner, bn), mid))
-        setattr(owner, second, _padded_conv(
-            b.weight.detach(), mid, b.out_channels, b.stride, b.padding))
+def _served_conv(spatial: nn.Conv3d, bn_mid: nn.BatchNorm3d,
+                 temporal: nn.Conv3d, bn_out: nn.BatchNorm3d,
+                 s2d: bool = False,
+                 extra_shift: Optional[torch.Tensor] = None
+                 ) -> _ServedConv2Plus1D:
+    """spatial -> bn_mid -> ReLU -> temporal -> bn_out folded, the
+    mid-planes padded to ``ALIGN``; ``s2d``: the spatial conv is the stem's
+    and runs space-to-depth; ``extra_shift`` joins bn_out's shift."""
+    w1, b1 = _fold(spatial, bn_mid)
+    w2, b2 = _fold(temporal, bn_out)
+    mid = _up(spatial.out_channels)
+    if s2d:
+        first = _padded_conv(_s2d_weight(w1), _up(4 * spatial.in_channels),
+                             mid, 1, 0)
+    else:
+        first = _padded_conv(w1, spatial.in_channels, mid, spatial.stride,
+                             spatial.padding)
+    second = _padded_conv(w2, mid, temporal.out_channels, temporal.stride,
+                          temporal.padding)
+    if extra_shift is not None:
+        b2 = b2 + extra_shift
+    return _ServedConv2Plus1D(first, _epilogue(b1, mid), second,
+                              _epilogue(b2, temporal.out_channels))
+
+
+def _served_block(block: BasicBlock2Plus1D) -> _ServedBlock:
+    def conv(c: Conv2Plus1D, bn, extra=None):
+        return _served_conv(c.spatial, c.bn_mid, c.temporal, bn,
+                            extra_shift=extra)
+
+    down, shift = None, None
+    if block.has_downsample:
+        d = block.downsample_conv
+        w, shift = _fold(d, block.downsample_bn)
+        down = _padded_conv(w, d.in_channels, d.out_channels, d.stride,
+                            d.padding)
+    return _ServedBlock(conv(block.conv1, block.bn1),
+                        conv(block.conv2, block.bn2, shift), down)
+
+
+def aligned_trunk(trunk: R2Plus1D18) -> nn.Module:
+    """An eval-only served copy of ``trunk`` that takes
+    ``aligned_input``'s batches (permuted to (N, C, T, H, W)), laid out
+    and folded as the module says."""
+    stem = _served_conv(trunk.stem_spatial, trunk.stem_bn1,
+                        trunk.stem_temporal, trunk.stem_bn2, s2d=True)
+    blocks = [(name, _served_block(getattr(trunk, name)))
+              for name in trunk.layer_names]
+    t = _ServedTrunk(stem, blocks, trunk.out_channels)
     return t.to(memory_format=torch.channels_last_3d).eval(
     ).requires_grad_(False)
 

@@ -114,13 +114,16 @@ def _device_forward(model: torch.nn.Module, uint8_gray: bool = False
     -> logits on the device; the caller holds the grad mode.
 
     Which copy serves: a float R(2+1)D model serves through its copy laid
-    out for cuDNN (``models/aligned.py``), built here once, on the batch as
-    that copy's stem takes it; each such forward counts
-    ``serve.aligned_trunk`` on the innermost span open (the daemon's
-    ``batcher.batch``). Every other model serves through ``model`` itself:
-    a Video Swin model under its bf16 autocast with the fused window
-    attention kernel (each block's attention counts ``swin.window_attn``
-    there), an int8 model, the image models and the other video trunks."""
+    out for cuDNN with its eval BatchNorms folded into its convs
+    (``models/aligned.py``), built here once, on the batch as that copy's
+    stem takes it; each such forward counts ``serve.aligned_trunk`` on the
+    innermost span open (the daemon's ``batcher.batch``), and its 26 conv
+    epilogues ``serve.conv_epilogue`` (the CUDA kernel) or
+    ``serve.conv_epilogue.plain``. Every other model serves through
+    ``model`` itself: a Video Swin model under its bf16 autocast with the
+    fused window attention kernel (each block's attention counts
+    ``swin.window_attn`` there), an int8 model, the image models and the
+    other video trunks."""
     served = aligned_serving_model(model)
 
     def forward(xt: torch.Tensor) -> torch.Tensor:

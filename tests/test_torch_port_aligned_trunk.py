@@ -8,13 +8,16 @@ On the CPU, at the small flagship (8 frames, P=8, D=64, K=4):
   reference.py``), at an even and an odd frame size;
 - the copy's layout: every conv's channels a multiple of 8 with
   ``channels_last_3d`` weights, the temporal convs run as 2-D convs, and
-  each padded channel exactly 0 after its conv and its BatchNorm;
+  each padded channel exactly 0 after its folded conv and its epilogue;
+- the copy holds no BatchNorm (each is folded into its conv) and leaves
+  the model's state_dict as it was, keys, shapes and values;
 - the model, its bundle and a bundle saved from a served model keep
   ``build_model``'s state_dict shapes;
 - int8, image XProtoNet and ProtoPNet serving functions build no copy and
   serve what the model computes;
-- the counter ``serve.aligned_trunk``: one per served batch while a
-  profiler is open, nothing otherwise.
+- the counters ``serve.aligned_trunk`` and ``serve.conv_epilogue.plain``:
+  one and 26 per served batch while a profiler is open, nothing
+  otherwise.
 On the card (``cuda`` marker): a served forward at the flagship's size
 launches no fp32 fallback convolution and no layout or dtype conversion.
 """
@@ -111,6 +114,16 @@ def test_served_logits_match_the_model(uint8, dtype, size):
         assert np.abs(got - want).max() < 0.05 * np.abs(want).max()
 
 
+def _original(name):
+    """The model's conv whose output channels the copy's module ``name``
+    holds: an epilogue holds its conv's."""
+    name = name.replace("stem.", "stem_")
+    for held, conv in (("mid", "spatial"), ("out", "temporal")):
+        if name.endswith(held):
+            return name[:-len(held)] + conv
+    return name
+
+
 def test_copy_is_aligned_channels_last_and_padded_with_zeros():
     model = _model()
     served = aligned.aligned_serving_model(model)
@@ -126,8 +139,8 @@ def test_copy_is_aligned_channels_last_and_padded_with_zeros():
         temporal = m.kernel_size[1:] == (1, 1) and m.kernel_size[0] > 1
         assert isinstance(m, aligned._TemporalConv) == temporal, name
     # the stem is the space-to-depth conv over 12 channels padded to 16
-    assert trunk.stem_spatial.in_channels == 16
-    assert trunk.stem_spatial.kernel_size == (1, 4, 4)
+    assert trunk.stem.spatial.in_channels == 16
+    assert trunk.stem.spatial.kernel_size == (1, 4, 4)
     padded = {}
 
     def hook(name, real):
@@ -137,14 +150,13 @@ def test_copy_is_aligned_channels_last_and_padded_with_zeros():
 
     handles = []
     for name, m in trunk.named_modules():
-        was = orig.get(name)
-        if isinstance(m, nn.Conv3d) and m.out_channels > was.out_channels:
-            handles.append(m.register_forward_hook(
-                hook(name, was.out_channels)))
-        elif isinstance(m, nn.BatchNorm3d) and \
-                m.num_features > was.num_features:
-            handles.append(m.register_forward_hook(
-                hook(name, was.num_features)))
+        if not isinstance(m, (nn.Conv3d, aligned._Epilogue)):
+            continue
+        real = orig[_original(name)].out_channels
+        channels = m.out_channels if isinstance(m, nn.Conv3d) \
+            else len(m.bias)
+        if channels > real:
+            handles.append(m.register_forward_hook(hook(name, real)))
     x = _wire(False, 2, (32, 32), seed=2)
     make_serving_fn(model)  # the model itself is left as it was
     with torch.no_grad():
@@ -153,10 +165,32 @@ def test_copy_is_aligned_channels_last_and_padded_with_zeros():
         h.remove()
     # the stem's 45 mid-planes and layer2.0's and layer3.0's 230 and 460
     assert set(padded) == {
-        "stem_spatial", "stem_bn1", "layer2_0.conv1.spatial",
-        "layer2_0.conv1.bn_mid", "layer3_0.conv1.spatial",
-        "layer3_0.conv1.bn_mid"}
+        "stem.spatial", "stem.mid", "layer2_0.conv1.spatial",
+        "layer2_0.conv1.mid", "layer3_0.conv1.spatial",
+        "layer3_0.conv1.mid"}
     assert all(padded.values()), padded
+
+
+FOLDED = [-3, -2]
+
+
+@pytest.mark.parametrize("last_layer_num", FOLDED,
+                         ids=[f"last_layer_{n}" for n in FOLDED])
+def test_copy_folds_every_batchnorm_and_leaves_the_model(last_layer_num):
+    model = _model(dict(CFG, backbone_last_layer_num=last_layer_num))
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    served = aligned.aligned_serving_model(model)
+    make_serving_fn(model)(_wire(False, 1, (32, 32), seed=9))
+    assert not any(isinstance(m, nn.modules.batchnorm._BatchNorm)
+                   for m in served.cnn_backbone.modules())
+    epilogues = [m for m in served.cnn_backbone.modules()
+                 if isinstance(m, aligned._Epilogue)]
+    assert len(epilogues) == 2 + 4 * len(model.cnn_backbone.layer_names)
+    assert all(m.bias.dtype == torch.float32 for m in epilogues)
+    after = model.state_dict()
+    assert _shapes(after) == _shapes(before)
+    for k, v in before.items():
+        assert torch.equal(after[k], v), k
 
 
 def _shapes(sd):
@@ -243,7 +277,8 @@ def test_counter_counts_one_per_served_batch_while_tracing():
     batches = [s for s in profiling.spans() if s["name"] == "batcher.batch"]
     profiling.reset()
     assert len(batches) == 3
-    assert [s["counts"] for s in batches] == [{"serve.aligned_trunk": 1}] * 3
+    assert [s["counts"] for s in batches] == [
+        {"serve.aligned_trunk": 1, "serve.conv_epilogue.plain": 26}] * 3
 
 
 @pytest.fixture
