@@ -89,7 +89,8 @@ def run_load(fn: Callable[[np.ndarray], np.ndarray],
                                              make_handler)
 
     batcher = DynamicBatcher(fn, max_batch=max_batch,
-                             max_delay_ms=max_delay_ms, dtype=dtype)
+                             max_delay_ms=max_delay_ms, dtype=dtype,
+                             sample_shape=sample_shape)
     t0 = time.monotonic()
     batcher.warmup(sample_shape)
     warm_s = time.monotonic() - t0

@@ -164,6 +164,11 @@ def make_sharded_serving_fn(model: torch.nn.Module,
     device (the launches are asynchronous, so the cards overlap) and the
     logits come back in order. A sample's logits depend on that sample
     only, so no collective is needed. One device is ``make_serving_fn``.
+
+    ``fn.host_buffer(shape, dtype)`` gives an array to build batches in
+    (``server.DynamicBatcher`` keeps two): pinned host memory when every
+    device is a card, so each shard's copy is a DMA from it, else
+    ``np.empty``.
     """
     devices = [torch.device(d) for d in devices]
     home = next(model.parameters()).device
@@ -191,6 +196,16 @@ def make_sharded_serving_fn(model: torch.nn.Module,
             return np.concatenate([o.float().cpu().numpy()
                                    for o in outs])[:b]
 
+    def host_buffer(shape: Sequence[int], dtype) -> np.ndarray:
+        dtype = np.dtype(dtype)
+        if any(d.type != "cuda" for d in devices):
+            return np.empty(shape, dtype)
+        # page-locked bytes viewed as the batch; the array keeps them alive
+        pinned = torch.empty(int(np.prod(shape)) * dtype.itemsize,
+                             dtype=torch.uint8, pin_memory=True)
+        return pinned.numpy().view(dtype).reshape(shape)
+
+    fn.host_buffer = host_buffer
     return fn
 
 

@@ -3,15 +3,18 @@
 The port's own copy of the JAX package's daemon (``protoasnet_tpu/server.py``)
 with the same wire protocol, so the JAX package's client works against it:
 
-- **One dispatch thread.** All device work happens on the batcher's single
-  worker thread; HTTP handler threads only do numpy and queue operations,
-  which keeps the device queue ordered and latency predictable.
+- **One dispatch thread.** All device work happens on the batcher's
+  dispatch thread, which keeps the device queue ordered and latency
+  predictable. HTTP handler threads and the batcher's assembly thread only
+  do numpy and queue operations: the assembly thread builds the next
+  batch in a resident host buffer (pinned on a card) while the dispatch
+  thread runs this one.
 - **Bucketed batch shapes.** Requests are coalesced and padded up to a
   fixed ladder (powers of two up to ``max_batch``), so the set of batch
   shapes the model sees is finite and is warmed at startup.
-- **Delay-window coalescing.** The dispatcher blocks for the first request,
-  then drains the queue for at most ``max_delay_ms`` or until ``max_batch``
-  samples are gathered.
+- **Delay-window coalescing.** A group takes requests until ``max_batch``
+  samples are gathered, or until the dispatch thread is free and
+  ``max_delay_ms`` has passed since the group's first request.
 - **Hot weight reload** (``--allow_reload``). ``POST /v1/reload`` loads
   another bundle or run directory and runs every bucket once on a side
   stream while the old weights keep serving, then swaps the model
@@ -43,18 +46,19 @@ Usage:
 
 from __future__ import annotations
 
+import collections
 import io
 import json
-import queue
 import socket
 import threading
 import time
 from http.server import ThreadingHTTPServer
-from typing import Any, Callable, List, Optional, Sequence, Tuple
+from typing import (Any, Callable, Deque, List, Optional, Sequence,
+                    Tuple)
 
 import numpy as np
 
-from protoasnet_tpu_torch.utils.profiling import interval, span
+from protoasnet_tpu_torch.utils.profiling import count, interval, span
 
 __all__ = ["DynamicBatcher", "BatcherStats", "Reloader", "make_handler",
            "serve_forever", "serve_live", "prometheus_text"]
@@ -214,13 +218,52 @@ class _Pending:
         self.abandoned = False  # waiter gave up; skip compute if not started
 
 
+class _Group:
+    """Requests coalesced into one batch, their rows copied into ``buf``
+    as they joined: filled on the assembly thread, served on the dispatch
+    thread."""
+
+    __slots__ = ("pendings", "buf", "total", "build_ns", "sealed_ns")
+
+    def __init__(self, buf: Optional[np.ndarray]):
+        self.pendings: List[_Pending] = []
+        # a resident buffer, or None: a fresh array at the first request
+        self.buf = buf
+        self.total = 0  # rows in buf
+        self.build_ns = 0  # host ns spent copying rows and zeroing padding
+        self.sealed_ns = 0  # time.time_ns() when handed to the dispatcher
+
+
+_STOP = object()  # in the hand-off: the dispatch thread exits
+
+
 class DynamicBatcher:
-    """Coalesce concurrent requests into bucketed batches on ONE thread.
+    """Coalesce concurrent requests into bucketed batches: each batch's
+    bucket is built on one thread while the device runs the batch before
+    it on another.
+
+    - ``batcher-assemble`` (numpy and queue work only) takes one of two
+      resident buffers of (largest bucket, *sample_shape) and copies each
+      request's rows into it as the request joins the group. Without a
+      ``sample_shape`` each group gets a fresh ``np.empty`` array instead. The group is
+      sealed when ``max_batch`` is full, or when the dispatch thread is
+      free and ``max_delay_ms`` has passed since the group's first
+      request; then its padding rows are zeroed and it goes to a hand-off
+      that holds one sealed group.
+    - ``batcher-dispatch`` does all device work: it calls ``fn`` on the
+      sealed buffer's first ``bucket`` rows (a view, no copy), hands out
+      the results and returns the buffer.
+
+    The resident buffers are allocated once, at construction, by
+    ``fn.host_buffer(shape, dtype)`` where ``fn`` offers it
+    (``serve.make_sharded_serving_fn``: pinned memory when its devices are
+    cards), else by ``np.empty``.
 
     fn: the model function, e.g. ``serve.load_serving_bundle(path)`` —
         called as ``fn(x)`` with x ``dtype`` (bucket, *sample_shape); must
         return per-sample outputs with leading dim == bucket. Called only
-        from the dispatch thread.
+        from the dispatch thread. x is refilled once fn returns (an
+        output that shares its memory is copied first).
     sample_shape: optional per-sample shape; when set, submit() rejects
         mismatched requests instead of letting one bad request poison the
         whole coalesced batch.
@@ -246,16 +289,37 @@ class DynamicBatcher:
             raise ValueError(f"largest bucket {self.buckets[-1]} < "
                              f"max_batch {self.max_batch}")
         self.stats = BatcherStats()
-        self._q: "queue.Queue[Optional[_Pending]]" = queue.Queue()
+        # one lock over the queue, the buffers and the hand-off; the
+        # assembly thread waits on the first condition, the dispatch
+        # thread on the second
+        self._lock = threading.Lock()
+        self._assemble_cv = threading.Condition(self._lock)
+        self._dispatch_cv = threading.Condition(self._lock)
+        self._queue: Deque[_Pending] = collections.deque()
         self._closed = False
         self._fatal: Optional[BaseException] = None
-        # dispatch-thread-only: the group currently being coalesced/served,
-        # so the _run guard can fail its waiters if the thread dies
-        self._current_group: List[_Pending] = []
-        self._close_lock = threading.Lock()
-        self._thread = threading.Thread(target=self._run, daemon=True,
-                                        name="batcher-dispatch")
-        self._thread.start()
+        # the resident buffers free to fill (none without a sample_shape)
+        self._free: List[np.ndarray] = []
+        if self.sample_shape is not None:
+            make = getattr(fn, "host_buffer", np.empty)
+            self._free = [make((self.buckets[-1], *self.sample_shape),
+                               self.dtype) for _ in range(2)]
+        # the groups in flight, so a fatal error or close() can fail their
+        # waiters: being filled, sealed in the hand-off, being served
+        self._filling: Optional[_Group] = None
+        self._sealed: Any = None  # a _Group, _STOP or None
+        self._serving: Optional[_Group] = None
+        # dispatch thread only: when the last fn call returned (time_ns)
+        self._fn_returned_ns: Optional[int] = None
+        self._threads = [
+            threading.Thread(target=self._guarded,
+                             args=(self._assemble, "assembly"),
+                             daemon=True, name="batcher-assemble"),
+            threading.Thread(target=self._guarded,
+                             args=(self._dispatch, "dispatch"),
+                             daemon=True, name="batcher-dispatch")]
+        for t in self._threads:
+            t.start()
 
     # -- client side --------------------------------------------------------
 
@@ -279,13 +343,14 @@ class DynamicBatcher:
     def _enqueue(self, x: np.ndarray, request: Optional[int] = None
                  ) -> _Pending:
         p = _Pending(x, request)
-        # lock orders the closed-check against close(): a put that won the
-        # check lands before the sentinel, so _drain_closed always sees it
-        with self._close_lock:
+        # the closed-check and the append under one lock: a request that
+        # won the check is in the queue before close() can drain it
+        with self._lock:
             if self._closed:
                 raise RuntimeError("batcher is closed")
             self.stats.record_request()
-            self._q.put(p)
+            self._queue.append(p)
+            self._assemble_cv.notify()
         return p
 
     def _wait(self, p: _Pending, deadline: Optional[float]) -> np.ndarray:
@@ -313,9 +378,10 @@ class DynamicBatcher:
     def submit_many(self, x: np.ndarray, timeout: Optional[float] = None,
                     request: Optional[int] = None) -> np.ndarray:
         """Any-size request: enqueue ALL max_batch-sized chunks up front
-        (so chunk k+1's H2D staging overlaps chunk k's compute), then wait
-        for each in order. ``request`` is the request's id in the spans
-        (``utils/profiling.py``): each chunk's ``batcher.queue`` carries it."""
+        (so chunk k+1's bucket is built while chunk k is on the device),
+        then wait for each in order. ``request`` is the request's id in the
+        spans (``utils/profiling.py``): each chunk's ``batcher.queue``
+        carries it."""
         x = self._validate(x)
         deadline = None if timeout is None else time.monotonic() + timeout
         pendings = [self._enqueue(x[i:i + self.max_batch], request)
@@ -333,12 +399,18 @@ class DynamicBatcher:
             raise
 
     def close(self):
-        with self._close_lock:
+        """Serve every request already accepted, then stop both threads;
+        whoever still waits after 10 s (behind an ``fn`` call that has not
+        returned) gets an error."""
+        with self._lock:
             self._closed = True
-            self._q.put(None)
-        self._thread.join(timeout=10)
+            self._assemble_cv.notify()
+        deadline = time.monotonic() + 10.0
+        for t in self._threads:
+            t.join(max(0.0, deadline - time.monotonic()))
+        self._fail_all(RuntimeError("batcher closed"))
 
-    # -- dispatch thread ----------------------------------------------------
+    # -- both threads -------------------------------------------------------
 
     def warmup(self, sample_shape: Optional[Sequence[int]] = None,
                buckets: Optional[Sequence[int]] = None) -> None:
@@ -360,133 +432,219 @@ class DynamicBatcher:
 
     @property
     def healthy(self) -> bool:
-        """True while the dispatch thread is serving (or cleanly closed).
-        False means the thread died on an unexpected error — /healthz
-        reports 503 so an orchestrator restarts the daemon."""
+        """True while both threads are serving (or cleanly closed). False
+        means one died on an unexpected error — /healthz reports 503 so
+        an orchestrator restarts the daemon."""
         return self._fatal is None
 
-    def _run(self):
-        try:
-            self._run_inner()
-        except BaseException as e:  # noqa: BLE001 — never die silently
-            # _flush already contains per-group failures; anything that
-            # still escapes here would otherwise zombie the daemon. Fail
-            # every queued waiter loudly instead of hanging them, and
-            # refuse new submits (fail-fast beats accept-and-hang).
-            self._fatal = e
-            with self._close_lock:
-                self._closed = True
-            dead: List[_Pending] = list(self._current_group)
-            while True:
-                try:
-                    p = self._q.get_nowait()
-                except queue.Empty:
-                    break
-                if p is not None:
-                    dead.append(p)
-            for p in dead:
-                if not p.event.is_set():
-                    p.error = RuntimeError(f"dispatch thread died: {e!r}")
-                    p.event.set()
-            raise
-
-    def _run_inner(self):
-        while True:
-            first = self._q.get()
-            if first is None:
-                self._drain_closed()
-                break
-            if first.abandoned:
-                self.stats.record_abandoned()
-                continue
-            group = [first]
-            self._current_group = group
-            total = len(first.x)
-            deadline = time.monotonic() + self.max_delay_s
-            # drain until the window closes or the max bucket fills
-            while total < self.max_batch:
-                remaining = deadline - time.monotonic()
-                if remaining <= 0:
-                    # grab whatever is already queued, but don't wait more
-                    try:
-                        nxt = self._q.get_nowait()
-                    except queue.Empty:
-                        break
-                else:
-                    try:
-                        nxt = self._q.get(timeout=remaining)
-                    except queue.Empty:
-                        break
-                if nxt is None:
-                    self._flush(group)
-                    self._drain_closed()
-                    return
-                if nxt.abandoned:
-                    self.stats.record_abandoned()
-                    continue
-                if (total + len(nxt.x) > self.max_batch
-                        or nxt.x.shape[1:] != group[0].x.shape[1:]):
-                    # doesn't fit (or, without submit-side shape validation,
-                    # a different sample shape): serve the current group,
-                    # start fresh — one request can't poison another's batch
-                    self._flush(group)
-                    group, total = [nxt], len(nxt.x)
-                    self._current_group = group
-                    deadline = time.monotonic() + self.max_delay_s
-                    continue
-                group.append(nxt)
-                total += len(nxt.x)
-            self._flush(group)
-            self._current_group = []
-
-    def _drain_closed(self):
-        """After the shutdown sentinel: fail any requests still queued so
-        their waiters don't hang until timeout."""
-        while True:
-            try:
-                p = self._q.get_nowait()
-            except queue.Empty:
-                return
-            if p is not None:
-                p.error = RuntimeError("batcher closed")
+    @staticmethod
+    def _fail(pendings: Sequence[_Pending], error: BaseException) -> None:
+        for p in pendings:
+            if not p.event.is_set():
+                p.error = error
                 p.event.set()
 
-    def _flush(self, group: List[_Pending]):
+    def _fail_all(self, error: BaseException) -> None:
+        """Fail every waiter still waiting: in the group being served, the
+        sealed one, the one being filled and the queue. A thread that
+        outlives this drops their rows instead of computing them."""
+        with self._lock:
+            dead = [p for g in (self._serving, self._sealed, self._filling)
+                    if isinstance(g, _Group) for p in g.pendings]
+            dead.extend(self._queue)
+            self._queue.clear()
+        for p in dead:
+            if not p.event.is_set():
+                p.abandoned = True
+        self._fail(dead, error)
+
+    def _guarded(self, loop: Callable[[], None], role: str) -> None:
+        try:
+            loop()
+        except BaseException as e:  # noqa: BLE001 — never die silently
+            # each group's failures are contained where it is built or
+            # served; anything that still escapes here would otherwise
+            # zombie the daemon. Stop the other thread, fail every waiter
+            # loudly instead of hanging them, and refuse new submits
+            # (fail-fast beats accept-and-hang).
+            with self._lock:
+                if self._fatal is None:
+                    self._fatal = e
+                self._closed = True
+                self._assemble_cv.notify_all()
+                self._dispatch_cv.notify_all()
+            self._fail_all(RuntimeError(f"{role} thread died: {e!r}"))
+            raise
+
+    # -- assembly thread ----------------------------------------------------
+
+    def _assemble(self):
+        while True:
+            with self._lock:
+                while (self.sample_shape is not None and not self._free
+                       and self._fatal is None):
+                    self._assemble_cv.wait()
+                if self._fatal is not None:
+                    return
+                g = self._filling = _Group(
+                    self._free.pop() if self._free else None)
+            deadline = 0.0
+            while g.total < self.max_batch:
+                p = self._join(g, deadline)
+                if p is None:
+                    break
+                if g.buf is None:  # no resident buffers: a fresh array
+                    try:
+                        # INSIDE a try: a transient MemoryError on a big
+                        # array must fail this request, not kill the thread
+                        g.buf = np.empty((self.buckets[-1], *p.x.shape[1:]),
+                                         self.dtype)
+                    except Exception as e:  # noqa: BLE001 — to its waiter
+                        with self._lock:
+                            g.pendings.remove(p)
+                        self.stats.record_error()
+                        self._fail([p], e)
+                        continue
+                if len(g.pendings) == 1:  # the group's first request
+                    deadline = time.monotonic() + self.max_delay_s
+                t0 = time.perf_counter_ns()
+                g.buf[g.total:g.total + len(p.x)] = p.x
+                g.total += len(p.x)
+                g.build_ns += time.perf_counter_ns() - t0
+            if not self._seal(g):
+                return
+
+    def _join(self, g: _Group, deadline: float) -> Optional[_Pending]:
+        """The next request for ``g``, taken from the queue; None when g
+        is to be sealed: the next request does not fit it (too many rows,
+        another sample shape), the batcher closes with the queue empty, or
+        the dispatch thread is free and the delay window has passed."""
+        with self._lock:
+            while self._fatal is None:
+                if self._queue:
+                    p = self._queue[0]
+                    if p.abandoned:
+                        self._queue.popleft()
+                        self.stats.record_abandoned()
+                        continue
+                    if g.pendings and (
+                            g.total + len(p.x) > self.max_batch
+                            or p.x.shape[1:] != g.pendings[0].x.shape[1:]):
+                        # it opens the next group: one request can't
+                        # poison another's batch
+                        return None
+                    self._queue.popleft()
+                    g.pendings.append(p)
+                    return p
+                if self._closed:
+                    return None
+                if not g.pendings:
+                    self._assemble_cv.wait()
+                    continue
+                left = deadline - time.monotonic()
+                if left > 0:
+                    self._assemble_cv.wait(left)
+                elif self._serving is None and self._sealed is None:
+                    return None
+                else:  # past the window, the device busy: keep coalescing
+                    self._assemble_cv.wait()
+            return None
+
+    def _seal(self, g: _Group) -> bool:
+        """Zero g's padding rows and hand g to the dispatch thread; an
+        empty group (closed, the queue drained) stops it instead. False
+        when this thread is to exit."""
+        if g.pendings:
+            t0 = time.perf_counter_ns()
+            g.buf[g.total:self._pick_bucket(g.total)] = 0
+            g.build_ns += time.perf_counter_ns() - t0
+        with self._lock:
+            while self._sealed is not None and self._fatal is None:
+                self._assemble_cv.wait()
+            if self._fatal is not None:
+                return False
+            self._filling = None
+            if g.pendings:
+                g.sealed_ns = time.time_ns()
+                self._sealed = g
+            else:
+                self._give_back(g)
+                self._sealed = _STOP
+            self._dispatch_cv.notify()
+        return bool(g.pendings)
+
+    def _give_back(self, g: _Group) -> None:
+        """Under the lock: g's resident buffer is free to fill again."""
+        if self.sample_shape is not None:
+            self._free.append(g.buf)
+
+    # -- dispatch thread ----------------------------------------------------
+
+    def _dispatch(self):
+        while True:
+            with self._lock:
+                while self._sealed is None and self._fatal is None:
+                    self._dispatch_cv.wait()
+                if self._fatal is not None or self._sealed is _STOP:
+                    return
+                g, self._sealed = self._sealed, None
+                self._serving = g
+                self._assemble_cv.notify()  # the hand-off is free
+            self._serve(g)
+            with self._lock:
+                self._serving = None
+                self._give_back(g)
+                self._assemble_cv.notify()  # a buffer and the device free
+
+    def _serve(self, g: _Group):
         # drop requests whose waiter timed out while queued — computing
         # them would spend chip time on work nobody reads (overload spiral)
-        live = [p for p in group if not p.abandoned]
-        for _ in range(len(group) - len(live)):
+        live = [p for p in g.pendings if not p.abandoned]
+        for _ in range(len(g.pendings) - len(live)):
             self.stats.record_abandoned()
-        group = live
-        total = sum(len(p.x) for p in group)
-        if not group:
+        if not live:
             return
+        total = sum(len(p.x) for p in live)
         bucket = self._pick_bucket(total)
         with span("batcher.batch", samples=total, bucket=bucket) as batch:
             try:
-                # the buffer alloc is INSIDE the try: a transient
-                # MemoryError on a big bucket must fail this group's
-                # waiters, not kill the dispatch thread (which would zombie
-                # the whole daemon)
-                with span("batcher.assemble"):
-                    x = np.zeros((bucket, *group[0].x.shape[1:]),
-                                 self.dtype)
+                if len(live) < len(g.pendings):
+                    # a waiter gave up after its rows went in: pack the
+                    # rest again
+                    t0 = time.perf_counter_ns()
                     ofs = 0
-                    for p in group:
-                        x[ofs:ofs + len(p.x)] = p.x
+                    for p in live:
+                        g.buf[ofs:ofs + len(p.x)] = p.x
                         ofs += len(p.x)
+                    g.buf[ofs:bucket] = 0
+                    g.build_ns += time.perf_counter_ns() - t0
+                # sealed before the last fn call returned: built while it ran
+                ahead = (self._fn_returned_ns is not None
+                         and g.sealed_ns < self._fn_returned_ns)
+                count("batcher.assembled_ahead" if ahead
+                      else "batcher.assembled_inline")
                 if batch is not None:
+                    # the host time that built the bucket, on the assembly
+                    # thread, up to its sealing
+                    interval("batcher.assemble", g.sealed_ns - g.build_ns,
+                             g.sealed_ns, parent=batch.id)
                     # each chunk's wait, from its enqueue to this call
                     now_ns, now = time.time_ns(), time.monotonic()
-                    for p in group:
+                    for p in live:
                         waited_ns = int((now - p.t_submit) * 1e9)
                         interval("batcher.queue", now_ns - waited_ns, now_ns,
                                  parent=batch.id, request=p.request)
-                out = np.asarray(self.fn(x), np.float32)
+                try:
+                    out = self.fn(g.buf[:bucket])
+                finally:
+                    self._fn_returned_ns = time.time_ns()
+                out = np.asarray(out, np.float32)
+                if np.may_share_memory(out, g.buf):
+                    out = out.copy()  # the buffer takes the next group
                 t_done = time.monotonic()
                 ofs = 0
                 lats = []
-                for p in group:
+                for p in live:
                     p.result = out[ofs:ofs + len(p.x)]
                     ofs += len(p.x)
                     lats.append((t_done - p.t_submit) * 1e3)
@@ -494,10 +652,7 @@ class DynamicBatcher:
                 self.stats.record_batch(total, bucket, lats)
             except BaseException as e:  # noqa: BLE001 — to all waiters
                 self.stats.record_error()
-                for p in group:
-                    if not p.event.is_set():
-                        p.error = e
-                        p.event.set()
+                self._fail(live, e)
 
 
 class Reloader:
@@ -521,7 +676,8 @@ class Reloader:
     - the swap is one attribute store (``batcher.fn = new_fn``), and the
       dispatch thread reads ``self.fn`` once per group, so every request
       is served entirely by one weight set. The old model is freed only
-      when the last group that read it has finished.
+      when the last group that read it has finished. The batcher keeps
+      its buffers: pinned host memory serves every card of the process.
 
     The head kernels' launch counters count the warm-up's launches too.
 

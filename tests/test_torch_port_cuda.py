@@ -1075,6 +1075,72 @@ def test_reload_warms_up_on_a_side_stream(dev, tmp_path):
     np.testing.assert_array_equal(got, load_serving_bundle(paths[1], dev)(x))
 
 
+def test_batcher_serves_from_pinned_host_buffers(dev, tmp_path):
+    """A card's serving function offers pinned host memory
+    (``host_buffer``), the batcher builds its buckets there, and the logits
+    it serves from them equal a direct call on the same clips, exactly."""
+    from protoasnet_tpu_torch import server
+    from protoasnet_tpu_torch.serve import load_serving_bundle
+
+    fn = load_serving_bundle(_live_bundles(tmp_path)[0], dev)
+    buf = fn.host_buffer((3, *LIVE_SAMPLE), np.float32)
+    assert buf.shape == (3, *LIVE_SAMPLE) and buf.dtype == np.float32
+    assert torch.from_numpy(buf).is_pinned()
+    seen = []
+
+    def traced(x):
+        seen.append(torch.from_numpy(x).is_pinned())
+        return fn(x)
+
+    traced.host_buffer = fn.host_buffer
+    b = server.DynamicBatcher(traced, max_batch=2, max_delay_ms=1.0,
+                              sample_shape=LIVE_SAMPLE)
+    x = np.random.default_rng(31).normal(
+        size=(4, *LIVE_SAMPLE)).astype(np.float32)
+    try:
+        got = b.submit_many(x, timeout=300)
+    finally:
+        b.close()
+    assert seen == [True, True]
+    np.testing.assert_array_equal(got, np.concatenate([fn(x[:2]),
+                                                       fn(x[2:])]))
+
+
+def test_batcher_serves_sharded_from_pinned_slices(dev, tmp_path):
+    """Sharded over every local card (card 0 twice where it is the only
+    one), each shard of an even split is a pinned row slice of the
+    batcher's buffer; a bucket that does not split is padded; the logits
+    equal a direct call of the sharded function on the same rows."""
+    from protoasnet_tpu_torch import server
+    from protoasnet_tpu_torch.serve import (load_bundle_model,
+                                            make_sharded_serving_fn)
+
+    n = torch.cuda.device_count()
+    devices = [f"cuda:{i % n}" for i in range(max(2, n))]
+    model = load_bundle_model(_live_bundles(tmp_path)[0], dev)[0]
+    fn = make_sharded_serving_fn(model, devices)
+    seen = []
+
+    def traced(x):
+        k = -(-len(x) // len(devices))
+        seen.append((len(x), [torch.from_numpy(x[i:i + k]).is_pinned()
+                              for i in range(0, len(x), k)]))
+        return fn(x)
+
+    traced.host_buffer = fn.host_buffer
+    b = server.DynamicBatcher(traced, max_batch=8, buckets=(3, 8),
+                              max_delay_ms=1.0, sample_shape=LIVE_SAMPLE)
+    x = np.random.default_rng(32).normal(
+        size=(11, *LIVE_SAMPLE)).astype(np.float32)
+    try:
+        got = b.submit_many(x, timeout=300)
+    finally:
+        b.close()
+    assert [(m, all(p)) for m, p in seen] == [(8, True), (3, True)]
+    np.testing.assert_array_equal(got, np.concatenate([fn(x[:8]),
+                                                       fn(x[8:])]))
+
+
 def test_tune_on_the_card_at_two_batches(dev, tmp_path):
     """``serve tune`` times the bundle's forward on the card at two batch
     sizes through the ROI kernel; both get a rate."""
