@@ -10,7 +10,8 @@ last trunks (r3d_18, VGG, DenseNet), data parallelism through
 ``torch.distributed.run``, prototype tensor parallelism, and the repo's
 measuring tools (the headline bench, serving latency, daemon load, int8
 accuracy), the Video Swin-B trunk's window attention kernel and its
-served path, and the served R(2+1)D trunk's conv epilogue kernel.
+served path, the served R(2+1)D trunk's conv epilogue kernel, and the
+MViTv2-B trunk's pooling attention kernel and its served path.
 
     python3 chip_smoke.py
 
@@ -248,6 +249,21 @@ raises and the script exits non-zero without printing a result):
    built by hand with the plain route in the kernel's place and against
    the model's own forward, and that copy's forward timed through each
    route.
+26. the MViTv2-B trunk: (a) ``pool_attn_cuda`` at the five call shapes
+   of its served trunk on 32x112x112 clips at batch 128 (queries x keys,
+   heads: 12545x257, 1; 3137x785, 2; 3137x257, 2; 785x785, 4; 785x257,
+   4), fp32 (TF32 off) and bf16 from fp32 inputs under autocast, every
+   clip against the float64 plain route ``pool_attention_torch`` on the
+   same inputs (16 clips at a time; fp32 within 1e-5 of max |ref|, bf16
+   within 1e-2 and no further than twice the plain route under
+   autocast), each timed in bf16 (CUDA events: the wrapper call; the
+   kernel on the device; the plain route) beside its bound
+   (``perfbench/kernels/pool_attn.py``); (b) the configuration's model
+   (random init) served at batch 128 by ``serve.make_serving_fn`` (uint8
+   gray, bf16) with ``pool_attn_cuda.launches`` set to 0 just before and
+   read just after (21, one a block), its logits against the same model
+   with the plain route in the kernel's place (within 0.1 of max(1,
+   |logits|), the cell's ``logit_gap`` limit).
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or of the JAX
@@ -285,7 +301,8 @@ from protoasnet_tpu_torch.experiments.common import (card_line, max_rel_err,
 REPO = Path(__file__).resolve().parent
 CONFIGS = REPO / "protoasnet_tpu" / "configs"
 SOURCES = ("roi_cosine.cu", "l2_min.cu", "temporal_conv.cu",
-           "fused_c2p1d.cu", "window_attn.cu", "conv_epilogue.cu")
+           "fused_c2p1d.cu", "window_attn.cu", "conv_epilogue.cu",
+           "pool_attn.cu")
 # the three served models: config, per-sample input, what a sample is
 VIDEO = dict(label="video flagship", config="ours_protoasnet_video.yml",
              sample=(32, 112, 112, 3), unit="clips")
@@ -4007,6 +4024,173 @@ def phase_conv_epilogue(dev, cfg):
                 forward_plain_ms=plain_ms), launches
 
 
+MVIT_CONFIG = REPO / "perfbench/configs/mvit/protoasnet_video_mvitv2_b.json"
+MVIT_BATCH = 128  # the daemon's default max_batch, the cell's bucket
+MVIT_CHUNK = 16  # clips a float64 plain-route call
+
+
+def _mvit_calls():
+    """The served MViTv2-B trunk's distinct attention calls in block order,
+    (q sides, k sides, heads), and how many of its blocks make each."""
+    from protoasnet_tpu_torch.models.backbones import mvit
+
+    calls = {}
+    for b in mvit.block_schedule(**mvit.MVIT_SPECS["mvit_v2_b"], stages=3):
+        key = (tuple(b["q_thw"]), tuple(b["kv_thw"]), b["heads"])
+        calls[key] = calls.get(key, 0) + 1
+    return calls
+
+
+def _pool_attn_errors(toks, tables, heads):
+    """The kernel against the float64 plain route on the same inputs, fp32
+    (TF32 off) and bf16 from fp32 (autocast, as the served trunk calls
+    it): the largest error over max |ref| of each, beside the plain route's
+    own under autocast."""
+    from protoasnet_tpu_torch.ops.pool_attn import pool_attention_torch
+    from protoasnet_tpu_torch.ops.pool_attn_cuda import pool_attn_cuda
+
+    n = len(toks[0]) // heads
+    errs = {}
+    for key, bf16 in (("fp32", False), ("bf16", True)):
+        with torch.no_grad(), no_tf32(), torch.autocast(
+                "cuda", dtype=torch.bfloat16, enabled=bf16):
+            got = pool_attn_cuda(*toks, *tables, heads)
+            worst, plain, top = 0.0, 0.0, 0.0
+            for i in range(0, n, MVIT_CHUNK):
+                rows = slice(i * heads, (i + MVIT_CHUNK) * heads)
+                part = [t[rows] for t in toks]
+                with torch.autocast("cuda", enabled=False):
+                    want = pool_attention_torch(
+                        *[t.double() for t in part],
+                        *[t.double() for t in tables], heads)
+                worst = max(worst, float(
+                    (got[i:i + MVIT_CHUNK].double() - want).abs().max()))
+                top = max(top, float(want.abs().max()))
+                if bf16:
+                    mine = pool_attention_torch(*part, *tables, heads)
+                    plain = max(plain, float(
+                        (mine.double() - want).abs().max()))
+                    mine = None
+                want = None
+        errs[key] = worst / top
+        # fp32: sums in another order than float64 (TOL); bf16: its
+        # products, positional terms and P rounded as the plain route
+        # rounds them under autocast, so no further from float64 than
+        # twice that route, and within TOL of the largest |ref|
+        if not worst <= TOL[torch.bfloat16 if bf16 else torch.float32] * top \
+                or bf16 and worst > max(2.0 * plain, 1e-3 * top):
+            raise AssertionError(
+                f"[26 mvit] {key}: the kernel is {worst / top:.3e} of max "
+                f"|ref| off float64 (the plain route under autocast "
+                f"{plain / top:.3e})")
+        if bf16:
+            errs["bf16_plain"] = plain / top
+        got = None
+    return errs
+
+
+def phase_pool_attn(dev):
+    """Phase 26: the pooling attention kernel at the MViTv2-B trunk's five
+    served call shapes, then the trunk's served path. Returns the
+    kernels-line record (a served forward's 21 calls, then each shape) and
+    the launches of the served forward."""
+    from perfbench.kernels import pool_attn as work
+    from protoasnet_tpu_torch.models.backbones import mvit
+    from protoasnet_tpu_torch.models.builder import build_model
+    from protoasnet_tpu_torch.ops import pool_attn
+    from protoasnet_tpu_torch.ops import pool_attn_cuda as mod
+    from protoasnet_tpu_torch.serve import make_serving_fn
+
+    n, d = MVIT_BATCH, mod.HEAD_DIM
+    calls = _mvit_calls()
+    if len(calls) != 5 or sum(calls.values()) != 21:
+        raise AssertionError(f"[26 mvit] call shapes {calls}: 5 shapes of "
+                             f"21 blocks expected")
+    shapes = []
+    for c, ((q_thw, k_thw, heads), blocks) in enumerate(calls.items()):
+        g = torch.Generator(device=dev).manual_seed(260 + c)
+
+        def rand(*shape):
+            return torch.randn(shape, generator=g, device=dev)
+
+        rows = n * heads
+        toks = [rand(rows, d), rand(rows, *q_thw, d), rand(rows, d),
+                rand(rows, *k_thw, d), rand(rows, d), rand(rows, *k_thw, d)]
+        tables = [rand(pool_attn.table_rows(q, k), d) / math.sqrt(d)
+                  for q, k in zip(q_thw, k_thw)]
+        errs = _pool_attn_errors(toks, tables, heads)
+        with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16):
+            def fused():
+                return mod.pool_attn_cuda(*toks, *tables, heads)
+
+            def plain():
+                return pool_attn.pool_attention_torch(*toks, *tables, heads)
+
+            ms = time_ms(fused, 20)
+            device_ms = kernel_device_ms(fused, mod.KERNEL, 20)
+            plain_ms = time_ms(plain, 3, warmup=1)
+        call = work.call_of(q_thw, k_thw, heads, d)
+        bound, bound_by = _bound(work.bytes_moved(rows, call, 4, 2),
+                                 work.flops(rows, call), torch.bfloat16)
+        lq, lk = call[:2]
+        shapes.append(dict(lq=lq, lk=lk, heads=heads, blocks=blocks,
+                           max_rel_err=errs, ms=ms, device_ms=device_ms,
+                           plain_ms=plain_ms, bound_ms=bound,
+                           bound_by=bound_by))
+        log(f"[26 mvit] {lq}x{lk}, {heads} head(s), {blocks} block(s), at "
+            f"{n}, bf16 from fp32: kernel {ms:.4f} ms (device "
+            f"{device_ms:.4f}), bound {bound:.4f} ({bound_by}, "
+            f"{100 * bound / device_ms:.1f}%), plain {plain_ms:.3f}; vs "
+            f"float64 {errs}")
+        del toks, tables
+        torch.cuda.empty_cache()
+    forward = {k: sum(r[k] * r["blocks"] for r in shapes)
+               for k in ("ms", "device_ms", "plain_ms", "bound_ms")}
+    log(f"[26 mvit] a served forward's 21 calls at {n}: kernel "
+        f"{forward['ms']:.3f} ms (device {forward['device_ms']:.3f}), bound "
+        f"{forward['bound_ms']:.3f} "
+        f"({100 * forward['bound_ms'] / forward['device_ms']:.1f}%), plain "
+        f"{forward['plain_ms']:.3f}")
+
+    # the launch count from the main path: serve.py's serving function on
+    # the configuration's model; its logits against the same model with the
+    # plain route in the kernel's place
+    mcfg = json.loads(MVIT_CONFIG.read_text())
+    model = build_model(mcfg, device="cpu", seed=0).to(dev)
+    rng = np.random.default_rng(26)
+    x = rng.integers(0, 256, size=(n, int(mcfg["frames"]),
+                                   int(mcfg["img_size"]),
+                                   int(mcfg["img_size"])), dtype=np.uint8)
+    serving = make_serving_fn(model, uint8_gray=True)
+    mod.pool_attn_cuda.launches = 0
+    logits = serving(x)
+    launches = mod.pool_attn_cuda.launches
+    if launches != 21:
+        raise AssertionError(f"[26 mvit] {launches} kernel launches in one "
+                             f"served batch, 21 expected")
+    fused = mvit.pool_attention
+    mvit.pool_attention = pool_attn.pool_attention_torch
+    try:
+        ref = serving(x)
+    finally:
+        mvit.pool_attention = fused
+    if logits.shape != (n, int(mcfg["num_classes"])) or \
+            not np.isfinite(logits).all():
+        raise AssertionError(f"[26 mvit] served logits {logits.shape}")
+    d_plain = float(np.abs(logits - ref).max()
+                    / max(np.abs(ref).max(), 1.0))
+    log(f"[26 mvit] served {n} clips (make_serving_fn, uint8 gray, bf16): "
+        f"pool_attn_cuda launches {launches}; vs the plain route "
+        f"{d_plain:.3e} of max(1, |logits|)")
+    # the cell's logit_gap limit, against the fp32 reference: 0.1
+    if d_plain > 0.1:
+        raise AssertionError(f"[26 mvit] served logits vs the plain route: "
+                             f"{d_plain}")
+    del model, serving
+    torch.cuda.empty_cache()
+    return dict(forward, calls=shapes), launches
+
+
 def _record(r):
     return {k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                               "bound_by", "library_ms")}
@@ -4032,11 +4216,12 @@ def main() -> int:
 
 
 def _phases(dev, card: str, cfgs, work: Path) -> int:
-    """Phases 1-25; the training runs stay under ``work`` for 13-23."""
+    """Phases 1-26; the training runs stay under ``work`` for 13-23."""
     t_start = time.monotonic()
     from protoasnet_tpu_torch.ops import conv_epilogue_cuda as epi_mod
     from protoasnet_tpu_torch.ops import fused_c2p1d_cuda as fused_mod
     from protoasnet_tpu_torch.ops import l2_min_cuda as l2_mod
+    from protoasnet_tpu_torch.ops import pool_attn_cuda as pool_mod
     from protoasnet_tpu_torch.ops import roi_cosine_cuda as roi_mod
     from protoasnet_tpu_torch.ops import temporal_conv_cuda as temporal_mod
     from protoasnet_tpu_torch.ops import window_attn_cuda as swin_mod
@@ -4140,7 +4325,11 @@ def _phases(dev, card: str, cfgs, work: Path) -> int:
     # just after
     epilogue, launches["conv_epilogue_cuda"] = phase_conv_epilogue(
         dev, cfgs[VIDEO["label"]])
-    log(f"[smoke] phases 1-25 took {time.monotonic() - t_start:.1f}s")
+    # the MViTv2-B trunk: its kernel at the served call shapes, then its
+    # served path with the kernel's count set to 0 just before it and read
+    # just after
+    mvit, launches["pool_attn_cuda"] = phase_pool_attn(dev)
+    log(f"[smoke] phases 1-26 took {time.monotonic() - t_start:.1f}s")
     print(card)
     print(json.dumps({"kernels": [
         dict(name="roi_cosine_cuda", route="cuda", source=roi_mod.SOURCE,
@@ -4167,6 +4356,9 @@ def _phases(dev, card: str, cfgs, work: Path) -> int:
         dict(name="conv_epilogue_cuda", route="cuda", source=epi_mod.SOURCE,
              replaces=epi_mod.REPLACES,
              launches=launches["conv_epilogue_cuda"], **epilogue),
+        dict(name="pool_attn_cuda", route="cuda", source=pool_mod.SOURCE,
+             replaces=pool_mod.REPLACES, launches=launches["pool_attn_cuda"],
+             **mvit),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

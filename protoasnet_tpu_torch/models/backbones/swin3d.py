@@ -40,8 +40,7 @@ from protoasnet_tpu_torch.ops.window_attn import (relative_position_index,
                                                   window_attention)
 
 __all__ = ["SWIN3D_SPECS", "SwinTransformer3d", "SwinBlock3d",
-           "ShiftedWindowAttention3d", "PatchMerging", "PatchEmbed3d",
-           "is_swin", "refuse_swin"]
+           "ShiftedWindowAttention3d", "PatchMerging", "PatchEmbed3d"]
 
 # torchvision's swin3d_b (the published Swin-B of arXiv:2106.13230)
 SWIN3D_SPECS: Dict[str, Dict] = {
@@ -216,13 +215,3 @@ class SwinTransformer3d(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.features(self.patch_embed(x))
 
-
-def is_swin(model: nn.Module) -> bool:
-    return any(isinstance(m, SwinTransformer3d) for m in model.modules())
-
-
-def refuse_swin(model: nn.Module, what: str) -> None:
-    """Raise for a path the port does not take on a Swin3D trunk."""
-    if is_swin(model):
-        raise NotImplementedError(f"{what} is not supported on a Swin3D "
-                                  f"trunk (swin3d_b)")

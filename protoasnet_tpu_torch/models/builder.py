@@ -3,8 +3,9 @@
 The names of the JAX package's registry: ``ProtoPNet`` (PPNet),
 ``XProtoNet`` (image) and ``Video_XProtoNet``, on every trunk of
 ``backbones/__init__.py``'s ``BACKBONE_NAMES``: ``Video_XProtoNet`` takes
-a video trunk (``resnet2p1d_18``, ``r3d_18`` or the Video Swin-B
-``swin3d_b``, whose widths the name gives), the other two a 2-D one
+a video trunk (``resnet2p1d_18``, ``r3d_18``, the Video Swin-B
+``swin3d_b`` or the MViTv2-B ``mvit_v2_b``, whose widths the name gives),
+the other two a 2-D one
 (ResNet-18/34/50/101/152, DenseNet-121/161/169/201, VGG-11/13/16/19 with
 and without BatchNorm). Every key of the shipped configs' ``model``
 section is read: ``model.remat`` checkpoints the R(2+1)D trunk's blocks in
@@ -19,7 +20,7 @@ from typing import Any, Dict, Optional, Union
 import torch
 from torch import nn
 
-from protoasnet_tpu_torch.models.backbones import SWIN3D_SPECS
+from protoasnet_tpu_torch.models.backbones import MVIT_SPECS, SWIN3D_SPECS
 from protoasnet_tpu_torch.models.protopnet import PPNet
 from protoasnet_tpu_torch.models.xprotonet import XProtoNet
 from protoasnet_tpu_torch.utils.config import parse_prototype_shape
@@ -28,7 +29,8 @@ from protoasnet_tpu_torch.utils.device import resolve_device
 __all__ = ["build_model", "example_input", "MODEL_NAMES"]
 
 MODEL_NAMES = ("ProtoPNet", "XProtoNet", "Video_XProtoNet")
-_VIDEO_BACKBONES = ("resnet2p1d_18", "r3d_18") + tuple(SWIN3D_SPECS)
+_VIDEO_BACKBONES = (("resnet2p1d_18", "r3d_18") + tuple(SWIN3D_SPECS)
+                    + tuple(MVIT_SPECS))
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 

@@ -8,7 +8,10 @@ in a Sequential), a ResNet trunk under ``cnn_backbone.`` or ``features.``
 with torchvision's keys, a Video Swin trunk under ``cnn_backbone.`` with
 torchvision's ``swin3d_b`` keys (``patch_embed.*``, ``features.*``; the
 port's names are the same, and ``relative_position_index``, which the
-window gives, is not carried), 1x1 convs in numbered Sequentials
+window gives, is not carried), an MViTv2 trunk under ``cnn_backbone.``
+with torchvision's ``mvit_v2_*`` keys (``conv_proj.*``,
+``pos_encoding.class_token``, ``blocks.*``; the port's names are the
+same), 1x1 convs in numbered Sequentials
 (``add_on_layers.{0,2}``, ``occurrence_module.{0,2,4}``; PPNet's add-on
 convs at its Sequential's conv indices), ``prototype_vectors`` with
 trailing unit dims (PPNet's (P, D, kh, kw)), ``last_layer.weight`` and a
@@ -49,7 +52,7 @@ from typing import Any, Dict, List, Tuple
 import numpy as np
 import torch
 
-from protoasnet_tpu_torch.models.backbones.swin3d import SWIN3D_SPECS
+from protoasnet_tpu_torch.models.backbones import MVIT_SPECS, SWIN3D_SPECS
 from protoasnet_tpu_torch.models.from_jax import (jax_to_state_dict,
                                                   state_dict_to_jax)
 from protoasnet_tpu_torch.models.pretrained import _R2P1D, _RESNET
@@ -121,7 +124,7 @@ def convert_reference_state_dict(sd: Dict[str, Any],
             idx, rest = k.split(".", 1)
             tv = f"stem.{rest}" if idx == "0" else f"layer{idx}.{rest}"
             out[f"{trunk}.{_rename(tv, _R2P1D)}"] = _tensor(v)
-    elif arch in SWIN3D_SPECS:
+    elif arch in SWIN3D_SPECS or arch in MVIT_SPECS:
         for k, v in _with_prefix(sd, "cnn_backbone.").items():
             if not k.endswith("relative_position_index"):
                 out[f"{trunk}.{k}"] = _tensor(v)
@@ -167,7 +170,8 @@ def export_reference_state_dict(state_dict: Dict[str, Any],
     ref: Dict[str, np.ndarray] = {}
     trunk = _trunk(name)
     rules = {"resnet2p1d_18": _R2P1D_INV}.get(
-        arch, [] if arch in SWIN3D_SPECS else _RESNET_INV)
+        arch, [] if arch in SWIN3D_SPECS or arch in MVIT_SPECS
+        else _RESNET_INV)
     for k, v in _with_prefix(sd, trunk + ".").items():
         tv = _rename(k, rules)
         if arch == "resnet2p1d_18":

@@ -34,8 +34,9 @@ passes the filter (default: under ``cnn_backbone``, as in the JAX
 package, so a ProtoPNet, whose trunk is ``features``, quantises nothing
 by default). The R(2+1)D trunk's ``stem_spatial`` is never taken: in the
 JAX package it is the space-to-depth stem, not an ``nn.Conv``, so the JAX
-package never quantises it. A model with a Swin3D trunk is refused: its
-work is in Linears and attention, which this scheme does not quantise.
+package never quantises it. A model with a transformer trunk (Swin3D or
+MViTv2) is refused: its work is in Linears and attention, which this
+scheme does not quantise.
 """
 
 from __future__ import annotations
@@ -48,7 +49,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from protoasnet_tpu_torch.models.backbones.swin3d import refuse_swin
+from protoasnet_tpu_torch.models.backbones import \
+    refuse_transformer_trunk
 from protoasnet_tpu_torch.ops.int8_conv import int8_conv, quantize
 
 __all__ = ["path_key", "default_backbone_filter", "calibrate_act_scales",
@@ -106,7 +108,7 @@ def calibrate_act_scales(model: nn.Module, batches: Sequence[Any],
     ``torch.inference_mode``) recording each qualifying conv input's
     absmax. Returns {path_key: scalar float32 scale (absmax / 127)} on
     the CPU; the model's train/eval mode is restored."""
-    refuse_swin(model, "w8a8 int8 (quant.py)")
+    refuse_transformer_trunk(model, "w8a8 int8 (quant.py)")
     absmax: Dict[str, torch.Tensor] = {}
     hooks = []
 
@@ -287,7 +289,7 @@ def quantized_model(model: nn.Module, qstate: Dict[str, Any]) -> nn.Module:
     trunk's ReLU passes the int8 codes, which are >= 0, unchanged). Convs
     not in ``qstate`` run as they are; an empty qstate gives the float
     model."""
-    refuse_swin(model, "w8a8 int8 (quant.py)")
+    refuse_transformer_trunk(model, "w8a8 int8 (quant.py)")
     out = copy.deepcopy(model).eval()
     carry: List[torch.dtype] = []
     for key, entry in qstate.items():

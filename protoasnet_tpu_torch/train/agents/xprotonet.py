@@ -44,7 +44,8 @@ import numpy as np
 import torch
 
 from protoasnet_tpu_torch.losses.bundle import LossBundle
-from protoasnet_tpu_torch.models.backbones.swin3d import refuse_swin
+from protoasnet_tpu_torch.models.backbones import \
+    refuse_transformer_trunk
 from protoasnet_tpu_torch.models.layers import prototype_class_identity
 from protoasnet_tpu_torch.parallel.mesh import (gather_rows, is_main,
                                                 replicate)
@@ -229,7 +230,8 @@ class _XProtoNetAgentCommon(BaseAgent):
         return summary["accuracy"], summary["f1_mean"], summary["AUC"]
 
     def push(self, replace_prototypes: bool = True) -> None:
-        refuse_swin(self.model, "the prototype push (and explain_global)")
+        refuse_transformer_trunk(self.model,
+                                 "the prototype push (and explain_global)")
         p = self.model.prototype_vectors.shape[0]
         new_vectors, _ = push_prototypes(
             self.data_loaders["train_push"], self.push_step,
@@ -278,7 +280,7 @@ class _XProtoNetAgentCommon(BaseAgent):
     def explain_local(self, mode: str = "test") -> Dict[str, Any]:
         from protoasnet_tpu_torch.explain.local import explain_local
 
-        refuse_swin(self.model, "explain_local")
+        refuse_transformer_trunk(self.model, "explain_local")
         return explain_local(self, mode=mode)
 
     def explain_global(self, mode: str = "test") -> None:

@@ -40,7 +40,7 @@ from protoasnet_tpu.train.steps import \
     make_protopnet_steps as jax_make_protopnet_steps
 from protoasnet_tpu_torch.losses.bundle import LossBundle
 from protoasnet_tpu_torch.models.backbones import (BACKBONE_NAMES,
-                                                   SWIN3D_SPECS,
+                                                   MVIT_SPECS, SWIN3D_SPECS,
                                                    make_backbone)
 from protoasnet_tpu_torch.models.builder import build_model
 from protoasnet_tpu_torch.models.from_jax import (jax_to_state_dict,
@@ -140,10 +140,13 @@ def test_trunk_forward_matches_jax(name):
 
 
 def test_backbone_names_are_the_jax_packages():
-    """The JAX package's names in its order, then the port's own Video
-    Swin trunk (which the JAX package does not have)."""
-    assert BACKBONE_NAMES == tuple(JAX_NAMES) + tuple(SWIN3D_SPECS)
+    """The JAX package's names in its order, then the port's own
+    transformer trunks, Video Swin and MViTv2 (which the JAX package does
+    not have)."""
+    assert BACKBONE_NAMES == tuple(JAX_NAMES) + tuple(SWIN3D_SPECS) + tuple(
+        MVIT_SPECS)
     assert tuple(SWIN3D_SPECS) == ("swin3d_b",)
+    assert tuple(MVIT_SPECS) == ("mvit_v2_b",)
     with pytest.raises(ValueError, match="options"):
         make_backbone("resnet9")
 
